@@ -1,8 +1,10 @@
 """Parameter trees between the two packages.
 
-The JAX package's SAGE parameters (``sage.init`` output, converted to
-numpy) and the port's share one layout, ``{"layers": [{"w", "b"}]}``
-with ``(in, out)`` weights, so conversion is a copy per leaf.
+The JAX package's parameters (``init`` output, converted to numpy) and
+the port's share one layout, so conversion is a copy per leaf: SAGE is
+``{"layers": [{"w", "b"}]}`` with ``(in, out)`` weights, GAT
+``{"layers": [{"w", "attn"}]}`` with ``w`` (heads, in, out) and
+``attn`` (heads, 2*out).
 """
 
 from __future__ import annotations

@@ -54,61 +54,108 @@ def _gather_np(a, idx, axis):
     return out
 
 
-def dispatch_host(params: dict, bnds: Boundaries, num_subnet: int) -> dict:
-    """Numpy slice of every subnet's SAGE shard, stacked on axis 0.  A
-    SAGE weight's rows are the doubled input ``[h || Ah]``, so a split
-    input boundary selects both halves."""
+def dispatch_host(params: dict, bnds: Boundaries, num_subnet: int,
+                  kind: str = "sage") -> dict:
+    """Numpy slice of every subnet's shard, stacked on axis 0.  A SAGE
+    weight's rows are the doubled input ``[h || Ah]``, so a split input
+    boundary selects both halves; a GAT weight (H, in, out) splits axes 1
+    and 2 and its ``attn`` (H, 2*out) the doubled output boundary."""
     layers_out = []
     for i, layer in enumerate(params["layers"]):
         b_in = bnds[i]
         b_out = bnds[i + 1] if i + 1 < len(bnds) else None
-        ws, bs = [], []
+        ws, bs, attns = [], [], []
         for s in range(num_subnet):
-            w = layer["w"]
-            if b_in is not None:
-                w = _gather_np(w, _full_idx_np(b_in[s], w.shape[0] // 2),
-                               axis=0)
-            if b_out is not None:
-                w = _gather_np(w, b_out[s], axis=1)
-            ws.append(w)
-            b = layer["b"]
-            bs.append(_gather_np(b, b_out[s], axis=0)
-                      if b_out is not None else b)
-        layers_out.append({"w": np.stack(ws), "b": np.stack(bs)})
+            if kind in ("gcn", "sage"):
+                w = layer["w"]
+                if b_in is not None:
+                    rows = (_full_idx_np(b_in[s], w.shape[0] // 2)
+                            if kind == "sage" else b_in[s])
+                    w = _gather_np(w, rows, axis=0)
+                if b_out is not None:
+                    w = _gather_np(w, b_out[s], axis=1)
+                ws.append(w)
+                b = layer["b"]
+                bs.append(_gather_np(b, b_out[s], axis=0)
+                          if b_out is not None else b)
+            elif kind == "gat":
+                w, attn = layer["w"], layer["attn"]
+                if b_in is not None:
+                    w = _gather_np(w, b_in[s], axis=1)
+                if b_out is not None:
+                    w = _gather_np(w, b_out[s], axis=2)
+                    attn = _gather_np(
+                        attn, _full_idx_np(b_out[s], attn.shape[1] // 2),
+                        axis=1)
+                ws.append(w)
+                attns.append(attn)
+            else:
+                raise ValueError(kind)
+        if kind == "gat":
+            layers_out.append({"w": np.stack(ws), "attn": np.stack(attns)})
+        else:
+            layers_out.append({"w": np.stack(ws), "b": np.stack(bs)})
     return {"layers": layers_out}
 
 
 def merge_host(params: dict, bnds: Boundaries, stacked: dict,
-               num_subnet: int) -> dict:
+               num_subnet: int, kind: str = "sage") -> dict:
     """In-place numpy scatter of the trained shards into the full-width
-    SAGE parameters; unsplit leaves take the mean over subnets."""
+    parameters; unsplit leaves take the mean over subnets."""
     for i, layer in enumerate(params["layers"]):
         b_in = bnds[i]
         b_out = bnds[i + 1] if i + 1 < len(bnds) else None
         sub = stacked["layers"][i]
-        w, b = layer["w"], layer["b"]
-        if b_in is None and b_out is None:
-            w[...] = sub["w"].mean(axis=0)
+        if kind in ("gcn", "sage"):
+            w, b = layer["w"], layer["b"]
+            if b_in is None and b_out is None:
+                w[...] = sub["w"].mean(axis=0)
+            else:
+                for s in range(num_subnet):
+                    rows = None if b_in is None else (
+                        _full_idx_np(b_in[s], w.shape[0] // 2)
+                        if kind == "sage" else b_in[s])
+                    # vr/vc drop VIRTUAL_IDX padding (non-divisible dims)
+                    vr = None if rows is None else rows < w.shape[0]
+                    vc = None if b_out is None else b_out[s] < w.shape[1]
+                    if rows is not None and b_out is not None:
+                        w[np.ix_(rows[vr], b_out[s][vc])] = \
+                            sub["w"][s][np.ix_(vr, vc)]
+                    elif rows is not None:
+                        w[rows[vr], :] = sub["w"][s][vr]
+                    else:
+                        w[:, b_out[s][vc]] = sub["w"][s][:, vc]
+            if b_out is None:
+                b[...] = sub["b"].mean(axis=0)
+            else:
+                for s in range(num_subnet):
+                    vc = b_out[s] < b.shape[0]
+                    b[b_out[s][vc]] = sub["b"][s][vc]
+        elif kind == "gat":
+            w, attn = layer["w"], layer["attn"]
+            if b_in is None and b_out is None:
+                w[...] = sub["w"].mean(axis=0)
+            else:
+                for s in range(num_subnet):
+                    vr = None if b_in is None else b_in[s] < w.shape[1]
+                    vc = None if b_out is None else b_out[s] < w.shape[2]
+                    if b_in is not None and b_out is not None:
+                        w[:, b_in[s][vr][:, None], b_out[s][vc][None, :]] = \
+                            sub["w"][s][:, vr][:, :, vc]
+                    elif b_in is not None:
+                        w[:, b_in[s][vr], :] = sub["w"][s][:, vr]
+                    else:
+                        w[:, :, b_out[s][vc]] = sub["w"][s][:, :, vc]
+            if b_out is None:
+                attn[...] = sub["attn"].mean(axis=0)
+            else:
+                half = attn.shape[1] // 2
+                for s in range(num_subnet):
+                    fi = _full_idx_np(b_out[s], half)
+                    vi = fi < attn.shape[1]
+                    attn[:, fi[vi]] = sub["attn"][s][:, vi]
         else:
-            for s in range(num_subnet):
-                rows = None if b_in is None else _full_idx_np(
-                    b_in[s], w.shape[0] // 2)
-                # vr/vc drop VIRTUAL_IDX padding (non-divisible dims)
-                vr = None if rows is None else rows < w.shape[0]
-                vc = None if b_out is None else b_out[s] < w.shape[1]
-                if rows is not None and b_out is not None:
-                    w[np.ix_(rows[vr], b_out[s][vc])] = \
-                        sub["w"][s][np.ix_(vr, vc)]
-                elif rows is not None:
-                    w[rows[vr], :] = sub["w"][s][vr]
-                else:
-                    w[:, b_out[s][vc]] = sub["w"][s][:, vc]
-        if b_out is None:
-            b[...] = sub["b"].mean(axis=0)
-        else:
-            for s in range(num_subnet):
-                vc = b_out[s] < b.shape[0]
-                b[b_out[s][vc]] = sub["b"][s][vc]
+            raise ValueError(kind)
     return params
 
 

@@ -49,6 +49,16 @@ def torch_linear_uniform(generator: torch.Generator, shape, fan_in: int,
     return u * (2 * stdv) - stdv
 
 
+def xavier_normal_gain(generator: torch.Generator, shape, gain: float,
+                       dtype=torch.float32) -> torch.Tensor:
+    """xavier_normal_ with an explicit gain: std = gain * sqrt(2 /
+    (fan_in + fan_out)), fan_in = shape[0], fan_out = shape[-1] — the GAT
+    init (gain sqrt(2))."""
+    std = gain * float(np.sqrt(2.0 / (shape[0] + shape[-1])))
+    return std * torch.randn(shape, generator=generator, dtype=dtype,
+                             device=generator.device)
+
+
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          mask: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy over masked nodes (static shapes, no boolean

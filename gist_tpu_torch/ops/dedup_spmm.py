@@ -37,23 +37,24 @@ launches = 0
 _lib = None
 
 
-def build_command(output: str = LIBRARY) -> list:
-    """The ``nvcc`` command that compiles the kernel into ``output``."""
+def build_command(output: str = LIBRARY, source: str = SOURCE) -> list:
+    """The ``nvcc`` command that compiles ``source`` into ``output``."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", output, SOURCE]
+            "-o", output, source]
 
 
-def build() -> str:
-    """Compile the kernel (atomic rename into ``LIBRARY``); returns the
+def build(source: str = SOURCE, library: str = LIBRARY) -> str:
+    """Compile ``source`` (atomic rename into ``library``); returns the
     compiler's report (``-Xptxas -v``: registers, shared memory)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    res = subprocess.run(build_command(tmp), capture_output=True, text=True)
+    tmp = f"{library}.{os.getpid()}.tmp"
+    res = subprocess.run(build_command(tmp, source), capture_output=True,
+                         text=True)
     if res.returncode:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, LIBRARY)
+    os.replace(tmp, library)
     return res.stderr
 
 

@@ -43,6 +43,19 @@ def resolve_backend(graph: Optional[Graph] = None,
     return "dedup" if on_card and graph.dedup is not None else "segment"
 
 
+def resolve_gat_backend(graph: Optional[Graph] = None,
+                        backend: Optional[str] = None) -> str:
+    """Backend of the GAT attention (``gist_tpu/ops/spmm.py:52``):
+    ``auto`` selects ``dedup`` (K4–K6) for a graph on a CUDA device that
+    carries the dedup layout pair, and ``segment`` otherwise."""
+    backend = backend or _DEFAULT_BACKEND
+    if backend != "auto":
+        return backend
+    on_card = graph is not None and graph.senders.is_cuda
+    return ("dedup" if on_card and graph.dedup is not None
+            and graph.dedup_t is not None else "segment")
+
+
 def tiles_wanted() -> bool:
     """Should graph builders pay the host-side layout cost?  True when
     the active backend could consume it (dedup, or auto with a card)."""

@@ -1,13 +1,41 @@
-"""Round batch collection for the IST trainers
-(``gist_tpu/train/ist_cluster.py:_RoundCollector``).  The shard_map
-trainer ``train_ist_cluster`` waits for the distributed slice."""
+"""Distributed IST + Cluster-GCN sampling
+(``gist_tpu/train/ist_cluster.py``) on one device.
+
+Each round collects ``iter_per_site`` cluster batches on the host (the
+next round's collection runs in a worker thread while the card trains),
+draws the round's boundary partitions, and then, for each subnet s in
+turn: dispatch, a fresh Adam and one step per batch
+(``build_local_burst_single``).  The trained shards are stacked and
+merged into the full-width model, which is evaluated on the full graph
+at the ``len(sampler)`` step cadence of the JAX trainer.
+
+The JAX trainer runs the K subnets side by side over a ``subnet`` mesh
+and gathers their shards with one ``all_gather``; the subnets' steps are
+independent, so the loop over subnets computes the same round.  The mesh
+(NCCL over several cards), ``lsgd``, ``use_pp`` and checkpoints wait for
+the distributed slice of the port.
+"""
 
 from __future__ import annotations
 
-from typing import List
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional
 
+import torch
+
+from gist_tpu_torch.convert import params_from_jax
+from gist_tpu_torch.data.container import Dataset
+from gist_tpu_torch.graph import graph_from_edges
+from gist_tpu_torch.ist.partition import boundary_sizes, sample_boundaries
+from gist_tpu_torch.ist.slicing import dispatch, merge, stack
+from gist_tpu_torch.ist.ultrawide import build_local_burst_single
+from gist_tpu_torch.models import sage
+from gist_tpu_torch.models.common import masked_accuracy, micro_f1
 from gist_tpu_torch.sampler import (ClusterBatch, ClusterSampler,
                                     bucket_size, unify_tile_buckets)
+from gist_tpu_torch.train.common import TrainConfig, reference_lr_schedule
+from gist_tpu_torch.utils import resolve_device
 
 
 def _batches_to_device(batches: List[ClusterBatch],
@@ -41,3 +69,159 @@ class _RoundCollector:
                                         edge_pad=edge_pad, edges=e,
                                         ids_only=self.ids_only)
                 for ids, e in zip(id_sets, edges)]
+
+
+def train_ist_cluster(
+    ds: Dataset,
+    model_cfg,
+    tc: TrainConfig,
+    *,
+    psize: int = 1500,
+    batch_size: int = 20,
+    use_pp: bool = False,
+    use_f1: bool = False,
+    normalize: bool = False,
+    cache_dir: Optional[str] = None,
+    model=sage,
+    kind: str = "sage",
+    mesh=None,
+    checkpoint_dir: Optional[str] = None,
+    lsgd: bool = False,
+    init_params: Optional[dict] = None,
+    device="cuda",
+    verbose: bool = True,
+) -> dict:
+    """Train ``model`` (``sage`` with kind "sage", ``gat`` with kind
+    "gat") with GIST on ``device``.  GAT splits the hidden boundaries
+    only; SAGE splits its hidden boundaries and the last one.
+    ``init_params`` (a numpy parameter tree, e.g. the JAX package's
+    ``init`` output) replaces the seeded initialisation."""
+    if mesh is not None or lsgd:
+        raise NotImplementedError(
+            "the subnet mesh and the local-SGD baseline wait for the "
+            "distributed slice of the port")
+    if checkpoint_dir:
+        raise NotImplementedError(
+            "checkpoints wait for the distributed slice of the port")
+    if use_pp:
+        raise NotImplementedError(
+            "the use_pp precomputation waits for the slice that ports the "
+            "plain GraphSAGE stack")
+    if kind not in ("sage", "gat"):
+        raise NotImplementedError(f"kind {kind!r} waits for the port of its "
+                                  f"model")
+    dev = resolve_device(device)
+    K = tc.num_subnet
+    if normalize:
+        ds.normalize_features()
+    sampler = ClusterSampler(ds, psize, batch_size, cache_dir=cache_dir,
+                             seed=tc.seed)
+    full_graph = graph_from_edges(ds.senders, ds.receivers,
+                                  ds.n_nodes).to(dev)
+    fx = torch.from_numpy(ds.features).to(dev)
+    flabels = torch.from_numpy(ds.labels).to(dev)
+    val_mask = torch.from_numpy(ds.val_mask).to(dev)
+    test_mask = torch.from_numpy(ds.test_mask).to(dev)
+
+    if init_params is None:
+        full_params = model.init(
+            torch.Generator(device=dev).manual_seed(tc.seed), model_cfg)
+    else:
+        full_params = params_from_jax(init_params, dev)
+    if kind == "gat":
+        sub_cfg = model_cfg.sub_config(num_subnet=K)
+        sizes = [None] + [model_cfg.n_hidden] * (model_cfg.n_layers - 1) \
+            + [None]
+    else:
+        sub_cfg = model_cfg.sub_config(split_input=False, split_output=True,
+                                       num_subnet=K)
+        sizes = boundary_sizes(model_cfg.in_feats, model_cfg.n_hidden,
+                               model_cfg.n_layers, split_input=False,
+                               split_output=True)
+    burst = build_local_burst_single(model, sub_cfg,
+                                     weight_decay=tc.weight_decay)
+
+    # the full graph carries no layout: the eval takes the segment path
+    def evaluate(params):
+        with torch.no_grad():
+            logits = model.apply(params, full_graph, fx, model_cfg,
+                                 backend="segment")
+        if use_f1:
+            lg = logits.cpu().numpy()
+            return (micro_f1(lg, ds.labels, ds.val_mask),
+                    micro_f1(lg, ds.labels, ds.test_mask))
+        return (float(masked_accuracy(logits, flabels, val_mask)),
+                float(masked_accuracy(logits, flabels, test_mask)))
+
+    # local epochs: n_epochs // num_subnet
+    local_epochs = max(tc.n_epochs // K, 1)
+    n_rounds = max(local_epochs * len(sampler) // tc.iter_per_site, 1)
+    collector = _RoundCollector(sampler, tc.iter_per_site, ids_only=True)
+    tables = sampler.tables(dev)
+    part_gen = torch.Generator().manual_seed(tc.seed + 1)
+    drop_gen = torch.Generator(device=dev).manual_seed(tc.dropout_seed)
+
+    total_time = 0.0
+    total_edges = 0
+    val_accs, test_accs, losses, eval_times = [], [], [], []
+    edges_per_batch, round_wall = [], []
+    steps_per_eval = max(len(sampler), 1)
+    steps_done = 0
+    next_eval = steps_per_eval
+
+    # the next round's host-side batch build overlaps the card's work
+    pool = ThreadPoolExecutor(max_workers=1)
+    try:
+        pending = pool.submit(collector.collect)
+        for rnd in range(n_rounds):
+            batches = pending.result()
+            pending = pool.submit(collector.collect) \
+                if rnd + 1 < n_rounds else None
+            edges_per_batch.extend(b.n_real_edges for b in batches)
+            dev_batches = _batches_to_device(batches, dev)
+            bnds = [None if b is None else b.to(dev)
+                    for b in sample_boundaries(part_gen, sizes, K)]
+            lr = reference_lr_schedule(tc.lr, n_rounds, rnd) \
+                if tc.lr_schedule else tc.lr
+            t0 = time.time()
+            trained, round_losses = [], []
+            for s in range(K):
+                sub, rl = burst(dispatch(full_params, bnds, s, kind),
+                                dev_batches, lr, drop_gen, tables)
+                trained.append(sub)
+                round_losses.append(rl)
+            full_params = merge(full_params, bnds, stack(trained), K, kind)
+            losses.append(float(torch.stack(round_losses).mean()))
+            wall = time.time() - t0
+            total_time += wall
+            round_wall.append(wall)
+            total_edges += sum(b.n_real_edges for b in batches) * K
+            steps_done += tc.iter_per_site
+            if steps_done >= next_eval or rnd == n_rounds - 1:
+                next_eval += steps_per_eval
+                va, ta = evaluate(full_params)
+                val_accs.append(va)
+                test_accs.append(ta)
+                eval_times.append(total_time)   # time-to-accuracy curve
+                if verbose:
+                    print(f"round {rnd}/{n_rounds}: loss {losses[-1]:.4f} "
+                          f"val {va:.4f}", flush=True)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+    results = {
+        "dataset": ds.name, "num_subnet": K, "train_time": total_time,
+        "edges_per_sec": total_edges / total_time if total_time else 0.0,
+        "last_val": val_accs[-1], "best_val": max(val_accs),
+        "last_test": test_accs[-1], "best_test": max(test_accs),
+        "val_accs": val_accs, "test_accs": test_accs, "losses": losses,
+        "eval_times": eval_times, "round_wall_s": round_wall,
+        "edges_per_batch": edges_per_batch,
+    }
+    if verbose:
+        print(f"Training Time: {total_time:.4f}", flush=True)
+        print(f"Last Val: {val_accs[-1]:.4f}", flush=True)
+        print(f"Best Val: {max(val_accs):.4f}", flush=True)
+        print(f"Last Test: {test_accs[-1]:.4f}", flush=True)
+        print(f"Best Test: {max(test_accs):.4f}", flush=True)
+    return results
