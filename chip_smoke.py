@@ -25,7 +25,22 @@ raising on failure:
    sub-model (width 256, 2 heads, 2 layers) through K4-K6 and through
    the segment path must agree;
 9. GAT main path: ``train_ist_cluster`` with GAT h512, 2 heads, K=2,
-   2 layers, 2 rounds x 2 subnets x 4 steps, counting K4-K6 launches.
+   2 layers, 2 rounds x 2 subnets x 4 steps, counting K4-K6 launches;
+10. split kernels: K2 against its plain version on the
+    synth-amazon2m-small split layouts (TN 64, threshold 128, CU 1024
+    and 512), forward and transpose, F=100 fp32 and bf16 and F=47 fp32,
+    with times;
+11. split path: one GCN h256 training step through K2 on the split
+    layouts and through K1 per chunk on the chunked layouts of the same
+    graph must agree, counting K2 launches;
+12. full-scale main path: ``train_full_graph``, GCN h256, 6 epochs on
+    synth-reddit (46.8M edges with self loops) through the chunked
+    layouts, counting K1 launches (4 C_f + 2 C_t per epoch); then K1 per
+    chunk on those layouts, forward and transpose at F=256 and F=41,
+    against its plain version and the segment aggregation;
+13. chunked GAT: a full-graph GAT h512 (2 heads, 2 layers) forward on
+    the same graph's chunked layout through K4 once per chunk and layer,
+    against the segment path.
 
 Then the kernel summary line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card or
@@ -59,12 +74,12 @@ def phase_device(torch):
 
 def phase_build():
     """One nvcc per kernel source, all started together."""
-    from gist_tpu_torch.ops import dedup_spmm, gat_dedup
-    builders = [dedup_spmm, gat_dedup]
+    from gist_tpu_torch.ops import dedup_spmm, gat_dedup, split_spmm
+    modules = [dedup_spmm, gat_dedup, split_spmm]
     os.makedirs(dedup_spmm.BUILD_DIR, exist_ok=True)
     t0 = time.time()
     procs = []
-    for mod in builders:
+    for mod in modules:
         tmp = f"{mod.LIBRARY}.{os.getpid()}.tmp"
         procs.append((mod, tmp, subprocess.Popen(
             mod.build_command(tmp), stdout=subprocess.PIPE,
@@ -573,6 +588,384 @@ def phase_gat_main_path(torch, ds):
     return launches
 
 
+def _split_bound(torch, t, x, n_out_rows):
+    """Least time for K2 over every chunk of ``t``: W, the per-job arrays
+    and the remote ids of the real jobs, the offsets, every feature row
+    read once and every output row written once, against the useful
+    multiply-adds of W's nonzero counts."""
+    f, item = x.shape[1], x.element_size()
+    real = t.job_offsets[:, -1].tolist()
+    nbytes = t.job_offsets.numel() * 4 + x.numel() * item \
+        + n_out_rows * f * item
+    nnz = 0
+    for c, jobs in enumerate(real):
+        rem_jobs = jobs - int(t.is_dir[c, :jobs].sum())
+        nbytes += jobs * (t.tile_rows * t.cu + 12) + rem_jobs * t.cu * 4
+        nnz += int(torch.count_nonzero(t.w_blocks[c, :jobs]))
+    flops = 2 * nnz * f
+    return _bound(nbytes, flops, x.dtype) + (nbytes, flops)
+
+
+def _chunked_bytes_nnz(torch, t):
+    """W, slots and offsets of the real jobs of every chunk, and W's
+    nonzero counts."""
+    nbytes = t.job_offsets.numel() * 4
+    nnz = 0
+    for c, jobs in enumerate(t.job_offsets[:, -1].tolist()):
+        nbytes += jobs * (t.tile_rows * t.cu + t.cu * 4)
+        nnz += int(torch.count_nonzero(t.w_blocks[c, :jobs]))
+    return nbytes, nnz
+
+
+def _split_layouts(g, cu):
+    """The split layout pair of ``g`` at the amazon bench's settings
+    (TN 64, threshold 128, 2^21 remote rows per chunk) and its build
+    seconds."""
+    from gist_tpu_torch.graph import _build_dedup_split_chunked
+    m = g.n_edges
+    kw = dict(tile_rows=64, cu=cu, threshold=128, chunk_rows=2 ** 21)
+    t0 = time.time()
+    fwd = _build_dedup_split_chunked(g.senders[:m].numpy(),
+                                     g.receivers[:m].numpy(), g.n_nodes, **kw)
+    bwd = _build_dedup_split_chunked(g.t_senders[:m].numpy(),
+                                     g.t_receivers[:m].numpy(), g.n_nodes,
+                                     **kw)
+    return fwd, bwd, time.time() - t0
+
+
+def phase_split_kernels(torch, device, g):
+    """K2 against its plain version on the synth-amazon2m-small split
+    layouts (CU 1024 and 512), forward and transpose, F=100 in fp32 and
+    bf16 and F=47 (the split path's layer-1 width) in fp32: every chunk
+    in one pass, with times beside the plain walk's and
+    one ``torch.sparse.mm`` on the node-order adjacency.  Returns the
+    rows and the CU=1024 layout pair (host tensors) for the split-path
+    phase."""
+    import numpy as np
+
+    from gist_tpu_torch.ops import split_spmm as K2
+
+    rng = np.random.default_rng(0)
+    rows, keep = {}, None
+    for cu in (1024, 512):
+        fwd, bwd, build_s = _split_layouts(g, cu)
+        if cu == 1024:
+            keep = (fwd, bwd)
+        for direction, lay in (("fwd", fwd), ("bwd", bwd)):
+            t = lay.to(device)
+            real = t.job_offsets[:, -1]
+            direct = sum(int(t.is_dir[c, :int(j)].sum())
+                         for c, j in enumerate(real.tolist()))
+            emit({"phase": "split_kernels", "cu": cu, "direction": direction,
+                  "build_s_pair": build_s, "n_chunks": t.n_chunks,
+                  "tiles_per_chunk": t.tiles_per_chunk,
+                  "jobs_pad": t.w_blocks.shape[1], "jobs": int(real.sum()),
+                  "direct_jobs": direct, "remote_slots": t.u_senders.numel(),
+                  "w_bytes": t.w_blocks.numel()})
+            rows_c = t.tiles_per_chunk * t.tile_rows
+            n_out = t.n_chunks * rows_c
+            adj = _csr_adjacency(torch, g, torch.float32, device,
+                                 transpose=direction == "bwd")
+            for f, dtype in ((100, torch.float32), (100, torch.bfloat16),
+                             (47, torch.float32)):
+                x = torch.from_numpy(rng.standard_normal(
+                    (g.n_nodes, f)).astype(np.float32))
+                x = x.to(dtype).to(device)
+                xp = x[t.perm.long()].contiguous()
+                out = torch.empty((n_out, f), dtype=dtype, device=device)
+                chunks = [(t.job_offsets[c], t.dir_blk[c], t.rem_blk[c],
+                           t.is_dir[c], t.w_blocks[c], t.u_senders[c],
+                           slice(c * rows_c, (c + 1) * rows_c))
+                          for c in range(t.n_chunks)]
+
+                def kernel():
+                    for *lay_c, sl in chunks:
+                        K2.split_spmm(*lay_c, xp, out=out[sl])
+                    return out
+
+                def plain():
+                    return torch.cat([K2.split_spmm_reference(*lay_c, xp)
+                                      for *lay_c, _ in chunks])
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                if not torch.isfinite(got.float()).all():
+                    raise RuntimeError("K2 output is not finite")
+                abs_err = float((got.float() - want.float()).abs().max())
+                rel_err = abs_err / float(want.float().abs().max())
+                tol = 1e-5 if dtype == torch.float32 else 1e-2
+                bound_ms, bound_by, nbytes, flops = _split_bound(
+                    torch, t, x, n_out)
+                library_ms = None
+                if dtype == torch.float32:
+                    library_ms = _median_ms(
+                        torch, lambda: torch.sparse.mm(adj, x), reps=10)
+                row = {"phase": "split_kernels",
+                       "case": f"{direction} CU={cu} F={f} "
+                               f"{str(dtype).split('.')[-1]}",
+                       "max_abs_err": abs_err, "rel_err": rel_err,
+                       "tol": tol, "ms": _median_ms(torch, kernel, reps=10),
+                       "plain_ms": _median_ms(torch, plain, reps=2,
+                                              warmup=1),
+                       "library_ms": library_ms,
+                       "library": "torch.sparse.mm on a CSR adjacency "
+                                  "(fp32 only)",
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bound_bytes": nbytes, "useful_flops": flops}
+                emit(row)
+                if not rel_err <= tol:
+                    raise RuntimeError(f"K2 disagrees with its plain "
+                                       f"version: {row}")
+                rows[row["case"]] = row
+            del t, adj
+        torch.cuda.empty_cache()
+    return rows, keep
+
+
+def phase_split_path(torch, device, ds, g, split_pair):
+    """One GCN h256 (1 hidden layer, dropout 0) training step through
+    ``gcn.apply`` on the split layouts (K2) and on the chunked layouts
+    of the same graph (K1 per chunk): losses to 1e-4 relative, first-step
+    gradients to 1e-3 norm-wise per leaf (two summation orders can flip
+    a ReLU input; see PERF.md).  Layer 0 aggregates x, which takes no
+    gradient: K2 runs twice forward per chunk and once backward."""
+    from gist_tpu_torch.models import gcn
+    from gist_tpu_torch.models.common import masked_cross_entropy
+    from gist_tpu_torch.ops import dedup_spmm as K
+    from gist_tpu_torch.ops import split_spmm as K2
+
+    t0 = time.time()
+    gk = g.with_tiles(mode="dedup-chunked", chunk_rows=2 ** 21)
+    chunked_build_s = time.time() - t0
+    graphs = {"split": g.replace(dedup_c=split_pair[0],
+                                 dedup_c_t=split_pair[1]).to(device),
+              "chunked": gk.to(device)}
+    cfg = gcn.GCNConfig(ds.in_feats, 256, ds.n_classes, n_layers=1,
+                        dropout=0.0)
+    init = gcn.init(torch.Generator(device=device).manual_seed(0), cfg)
+    x = torch.from_numpy(ds.features).to(device)
+    labels = torch.from_numpy(ds.labels).to(device)
+    mask = torch.from_numpy(ds.train_mask).to(device)
+    out = {}
+    for name, gr in graphs.items():
+        params = {"layers": [{k: v.clone().requires_grad_(True)
+                              for k, v in l.items()}
+                             for l in init["layers"]]}
+        leaves = [t for l in params["layers"] for t in l.values()]
+        K.launches = K2.launches = 0
+        loss = masked_cross_entropy(
+            gcn.apply(params, gr, x, cfg, train=True, backend="dedup"),
+            labels, mask)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        out[name] = (float(loss.detach()), grads, K.launches, K2.launches)
+    (ls, gs, k1s, k2s), (lk, gk_, k1k, k2k) = out["split"], out["chunked"]
+    norm_err = [float((a - b).norm() / b.norm()) for a, b in zip(gs, gk_)]
+    sp, ch = graphs["split"], graphs["chunked"]
+    want_k2 = 2 * sp.dedup_c.n_chunks + sp.dedup_c_t.n_chunks
+    want_k1 = 2 * ch.dedup_c.n_chunks + ch.dedup_c_t.n_chunks
+    row = {"phase": "split_path", "loss_split": ls, "loss_chunked": lk,
+           "grad_norm_rel_err_per_leaf": norm_err,
+           "k2_launches": k2s, "k1_launches_split_run": k1s,
+           "k1_launches_chunked_run": k1k, "k2_launches_chunked_run": k2k,
+           "chunked_n_chunks": [ch.dedup_c.n_chunks, ch.dedup_c_t.n_chunks],
+           "chunked_build_s_pair": chunked_build_s}
+    emit(row)
+    if (k2s, k1s, k1k, k2k) != (want_k2, 0, want_k1, 0):
+        raise RuntimeError(f"unexpected K1/K2 launches (want K2 {want_k2} "
+                           f"on the split run, K1 {want_k1} on the chunked "
+                           f"run): {row}")
+    if not (abs(ls - lk) <= 1e-4 * abs(lk) and max(norm_err) <= 1e-3):
+        raise RuntimeError(f"the split path disagrees with the chunked "
+                           f"path: {row}")
+    return k2s
+
+
+def phase_full_path(torch, device, ds):
+    """The full-scale main path: ``train_full_graph`` with GCN h256, one
+    hidden layer, dropout 0.5, lr 1e-2, weight decay 5e-4 and the LR
+    schedule, 6 epochs on synth-reddit with self loops.  The graph is
+    above ``HUGE_EDGES``, so ``prepare_graph`` builds the chunked pair
+    and K1 runs once per chunk: per epoch 4 x C_f launches (layers 0 and
+    1, train and eval) and 2 x C_t (their backward).  Returns the
+    launches, the graph on the card and the rows of the chunked-K1
+    check."""
+    from gist_tpu_torch.models.gcn import GCNConfig
+    from gist_tpu_torch.ops import dedup_spmm as K
+    from gist_tpu_torch.train.common import TrainConfig
+    from gist_tpu_torch.train.full_graph import prepare_graph, train_full_graph
+
+    t0 = time.time()
+    graph = prepare_graph(ds)
+    layout_build_s = time.time() - t0
+    if graph.dedup_c is None or graph.dedup_c_t is None:
+        raise RuntimeError("synth-reddit did not get the chunked layouts")
+    cf, ct = graph.dedup_c.n_chunks, graph.dedup_c_t.n_chunks
+    emit({"phase": "full_path", "nodes": ds.n_nodes, "edges": ds.n_edges,
+          "layout_build_s": layout_build_s, "n_chunks": [cf, ct],
+          "tiles_per_chunk": graph.dedup_c.tiles_per_chunk,
+          "jobs_pad": graph.dedup_c.w_blocks.shape[1],
+          "jobs": int(graph.dedup_c.job_offsets[:, -1].sum()),
+          "w_bytes_pair": graph.dedup_c.w_blocks.numel()
+          + graph.dedup_c_t.w_blocks.numel()})
+    graph = graph.to(device)
+    cfg = GCNConfig(ds.in_feats, 256, ds.n_classes, n_layers=1, dropout=0.5)
+    tc = TrainConfig(lr=1e-2, weight_decay=5e-4, n_epochs=6,
+                     lr_schedule=True)
+    torch.cuda.reset_peak_memory_stats()
+    K.launches = 0
+    r = train_full_graph(ds, cfg, tc, graph=graph, device="cuda",
+                         verbose=False)
+    torch.cuda.synchronize()
+    launches = K.launches
+    emit({"phase": "full_path", "epochs": tc.n_epochs,
+          "layout_build_s": layout_build_s,
+          "mean_epoch_s": r["mean_epoch_s"], "kteps": r["kteps"],
+          "losses": r["losses"], "val_accs": r["val_accs"],
+          "test_accs": r["test_accs"],
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "k1_launches": launches})
+    want = tc.n_epochs * (4 * cf + 2 * ct)
+    if launches != want:
+        raise RuntimeError(f"K1 launched {launches} times, want {want} "
+                           f"(4 C_f + 2 C_t per epoch)")
+    if not all(v == v and abs(v) < float("inf") for v in r["losses"]):
+        raise RuntimeError("non-finite loss")
+    return launches, graph, _check_chunked_k1(torch, device, graph)
+
+
+def _timed(torch, fn):
+    """(fn's result, its milliseconds on the card) of one call."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    res = fn()
+    b.record()
+    b.synchronize()
+    return res, a.elapsed_time(b)
+
+
+def _chunked_plain(torch, t, x, n_nodes):
+    """The chunked K1 runner's plain version: the same permutation, each
+    chunk's plain walk, the same row map."""
+    from gist_tpu_torch.ops import dedup_spmm as K
+    xp = x.index_select(0, t.perm) if t.perm is not None else x
+    out = torch.cat([K.dedup_spmm_reference(t.job_offsets[c], t.w_blocks[c],
+                                            t.u_senders[c], xp)
+                     for c in range(t.n_chunks)])
+    return out.index_select(0, t.pos) if t.pos is not None else out[:n_nodes]
+
+
+def _check_chunked_k1(torch, device, graph):
+    """K1 once per chunk at the full-scale path's own shapes: forward on
+    ``dedup_c`` and transpose on ``dedup_c_t``, at F=256 (layer 0) and
+    F=41 (layer 1), fp32, against the plain version (1e-5 relative to
+    max|plain|) and against the segment aggregation of the same graph,
+    which knows nothing of the layout's perm and pos (1e-5 relative to
+    max|segment|).  The bound counts the features once and the
+    kernel-order output once."""
+    import numpy as np
+
+    from gist_tpu_torch.ops import dedup_spmm as K
+    from gist_tpu_torch.ops.spmm import spmm_segment_chunked
+
+    rng = np.random.default_rng(0)
+    n = graph.n_nodes
+    rows = {}
+    for direction, g in (("fwd", graph), ("bwd", graph.transpose())):
+        t = g.dedup_c
+        lay_bytes, nnz = _chunked_bytes_nnz(torch, t)
+        out_rows = t.n_chunks * t.tiles_per_chunk * t.tile_rows
+        for f in (256, 41):
+            x = torch.from_numpy(rng.standard_normal(
+                (n, f)).astype(np.float32)).to(device)
+            got = K.run_dedup_chunked(t, x, n)
+            want, plain_ms = _timed(torch, lambda: _chunked_plain(
+                torch, t, x, n))
+            seg, segment_ms = _timed(torch, lambda: spmm_segment_chunked(
+                g, x))
+            if not torch.isfinite(got).all():
+                raise RuntimeError("chunked K1 output is not finite")
+            abs_err = float((got - want).abs().max())
+            rel_err = abs_err / float(want.abs().max())
+            seg_err = float((got - seg).abs().max() / seg.abs().max())
+            bound_ms, bound_by = _bound(
+                lay_bytes + (n + out_rows) * f * 4, 2 * nnz * f,
+                torch.float32)
+            row = {"phase": "full_path",
+                   "case": f"run_dedup_chunked {direction} F={f} float32",
+                   "n_chunks": t.n_chunks, "max_abs_err": abs_err,
+                   "rel_err": rel_err, "segment_rel_err": seg_err,
+                   "tol": 1e-5, "ms": _median_ms(
+                       torch, lambda: K.run_dedup_chunked(t, x, n), reps=5),
+                   "plain_ms": plain_ms, "segment_ms": segment_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "w_nonzero": nnz}
+            emit(row)
+            if not (rel_err <= 1e-5 and seg_err <= 1e-5):
+                raise RuntimeError(f"chunked K1 disagrees with its plain "
+                                   f"version or the segment path: {row}")
+            rows[row["case"]] = row
+            del x, got, want, seg
+    return rows
+
+
+def phase_gat_chunked(torch, device, ds, graph):
+    """A full-graph GAT forward (h512, 2 heads, 2 layers, parameters from
+    a seed) on the synth-reddit graph's chunked layout through K4 once
+    per chunk and layer, against the segment path: 1e-4 relative to
+    max|segment|."""
+    from gist_tpu_torch.models import gat
+    from gist_tpu_torch.ops import gat_dedup as G
+
+    cfg = gat.GATConfig(ds.in_feats, 512, ds.n_classes, n_layers=2,
+                        n_heads=2)
+    params = gat.init(torch.Generator(device=device).manual_seed(0), cfg)
+    x = torch.from_numpy(ds.features).to(device)
+    with torch.no_grad():
+        G.reset_launches()
+        got = gat.apply(params, graph, x, cfg, backend="dedup")
+        torch.cuda.synchronize()
+        launches = G.launches_fwd
+        want = gat.apply(params, graph, x, cfg, backend="segment")
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        # layer 0's attention alone: K4 per chunk over both heads
+        layer = params["layers"][0]
+        z = torch.einsum("nf,hfo->nho", x, layer["w"]).contiguous()
+        src = torch.einsum("nho,ho->nh", z, layer["attn"][:, :512])
+        dst = torch.einsum("nho,ho->nh", z, layer["attn"][:, 512:])
+        t = graph.dedup_c
+        lay_bytes, nnz = _chunked_bytes_nnz(torch, t)
+        rows = t.n_chunks * t.tiles_per_chunk * t.tile_rows
+        heads, o = z.shape[1], z.shape[2]
+        l0_bound = _bound(lay_bytes + z.numel() * 4 + src.numel() * 8
+                          + rows * heads * (o * 4 + 8),
+                          nnz * heads * (2 * o + 6), torch.float32)
+        row = {"phase": "gat_chunked", "k4_launches": launches,
+               "max_abs_err": err, "rel_err": rel, "tol": 1e-4,
+               "finite": bool(torch.isfinite(got).all()),
+               "layer0_attention_ms": _median_ms(
+                   torch, lambda: G.gat_attention_dedup_chunked(
+                       graph, z, src, dst), reps=3, warmup=1),
+               "layer0_bound_ms": l0_bound[0],
+               "layer0_bound_by": l0_bound[1],
+               "ms": _median_ms(torch, lambda: gat.apply(
+                   params, graph, x, cfg, backend="dedup"), reps=3,
+                   warmup=1),
+               "segment_ms": _median_ms(torch, lambda: gat.apply(
+                   params, graph, x, cfg, backend="segment"), reps=3,
+                   warmup=1)}
+    emit(row)
+    if launches != 2 * graph.dedup_c.n_chunks:
+        raise RuntimeError(f"K4 launched {launches} times, want "
+                           f"{2 * graph.dedup_c.n_chunks} (2 x C_f)")
+    if not (row["finite"] and rel <= 1e-4):
+        raise RuntimeError(f"chunked K4 disagrees with the segment path: "
+                           f"{row}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -629,15 +1022,42 @@ def main():
     t0 = time.time()
     gat_launches = phase_gat_main_path(torch, dataclasses.replace(ds_r))
     emit({"phase": "gat_main_path", "seconds": time.time() - t0})
+    del ds_r, gat_sampler, sampler
+
+    from gist_tpu_torch.graph import graph_from_edges
+    g_amazon = graph_from_edges(ds.senders, ds.receivers, ds.n_nodes)
+    t0 = time.time()
+    split_rows, split_pair = phase_split_kernels(torch, device, g_amazon)
+    emit({"phase": "split_kernels", "seconds": time.time() - t0})
+
+    t0 = time.time()
+    k2_launches = phase_split_path(torch, device, ds, g_amazon, split_pair)
+    emit({"phase": "split_path", "seconds": time.time() - t0})
+    del g_amazon, split_pair
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    ds_big = load_dataset("synth-reddit", self_loop=True)
+    emit({"phase": "full_path", "dataset_s": time.time() - t0})
+    full_launches, big_graph, chunked_rows = phase_full_path(
+        torch, device, ds_big)
+    emit({"phase": "full_path", "seconds": time.time() - t0})
+
+    t0 = time.time()
+    chunked_k4 = phase_gat_chunked(torch, device, ds_big, big_graph)
+    emit({"phase": "gat_chunked", "seconds": time.time() - t0})
 
     main_case = cases["fwd F=256 float32"]
     kernels = [{
         "name": "dedup_spmm", "route": "cuda",
         "source": "gist_tpu_torch/csrc/dedup_spmm.cu",
         "replaces": "gist_tpu/ops/pallas_spmm.py:66",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases.values()
-                           if c["case"].endswith("float32")),
+        "launches": launches + full_launches,
+        "launches_by_path": {"sage_ultrawide": launches,
+                             "full_graph_gcn": full_launches},
+        "max_abs_err": max(c["max_abs_err"] for c in [
+            *cases.values(), *chunked_rows.values()]
+            if c["case"].endswith("float32")),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
@@ -645,12 +1065,29 @@ def main():
     gat_kernels = (("K4", "gat_fwd", "gist_tpu/ops/pallas_gat.py:546"),
                    ("K5", "gat_bwd_b1", "gist_tpu/ops/pallas_gat.py:1015"),
                    ("K6", "gat_bwd_b2", "gist_tpu/ops/pallas_gat.py:1070"))
+    split_main = split_rows["fwd CU=1024 F=100 float32"]
+    kernels.append({
+        "name": "split_spmm", "route": "cuda",
+        "source": "gist_tpu_torch/csrc/split_spmm.cu",
+        "replaces": "gist_tpu/ops/pallas_spmm.py:298",
+        "launches": k2_launches,
+        "launches_by_path": {"split_gcn_step": k2_launches},
+        "max_abs_err": max(c["max_abs_err"] for c in split_rows.values()
+                           if c["case"].endswith("float32")),
+        "ms": split_main["ms"], "plain_ms": split_main["plain_ms"],
+        "bound_ms": split_main["bound_ms"],
+        "bound_by": split_main["bound_by"],
+        "library_ms": split_main["library_ms"]})
     for (key, name, replaces), count in zip(gat_kernels, gat_launches):
         main_row = gat_rows[(key, "H=2 O=256 float32")]
+        extra = chunked_k4 if key == "K4" else 0
         kernels.append({
             "name": name, "route": "cuda",
             "source": "gist_tpu_torch/csrc/gat_dedup.cu",
-            "replaces": replaces, "launches": count,
+            "replaces": replaces, "launches": count + extra,
+            "launches_by_path": {"gat_gist": count,
+                                 **({"full_graph_gat": extra}
+                                    if key == "K4" else {})},
             "max_abs_err": max(r["max_abs_err"] for (k, tag), r in
                                gat_rows.items()
                                if k == key and tag.endswith("float32")),

@@ -2,8 +2,9 @@
 
 The JAX package's parameters (``init`` output, converted to numpy) and
 the port's share one layout, so conversion is a copy per leaf: SAGE is
-``{"layers": [{"w", "b"}]}`` with ``(in, out)`` weights, GAT
-``{"layers": [{"w", "attn"}]}`` with ``w`` (heads, in, out) and
+``{"layers": [{"w", "b"}]}`` with ``w`` (2*in, out) and ``b`` (out,),
+GCN ``{"layers": [{"w", "b"}]}`` with ``w`` (in, out) and ``b`` (out,),
+GAT ``{"layers": [{"w", "attn"}]}`` with ``w`` (heads, in, out) and
 ``attn`` (heads, 2*out).
 """
 

@@ -7,9 +7,10 @@ pass (``gist_tpu/graph.py:617``).  Padding edges carry
 
 The host builders are numpy and produce the same arrays as the JAX
 package for the same inputs; the containers hold CPU tensors that a
-caller moves with ``.to(device)``.  Of the JAX package's layouts only
-the flat dedup layout (``DedupTiles``) is ported: the chunked, split
-and v1 gather layouts wait for the slices that port their kernels.
+caller moves with ``.to(device)``.  The dedup layouts are ported:
+flat (``DedupTiles``), chunked and split (``ChunkedDedupTiles``).  The
+v1 gather layout (``TiledCSR``) waits for the slice that ports its
+kernels.
 """
 
 from __future__ import annotations
@@ -20,6 +21,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+
+# one flat gather of every unique row beyond this many edges is
+# device-memory hostile whatever W's size: ``with_tiles`` goes straight
+# to the chunked layout (``gist_tpu/graph.py:688``)
+HUGE_EDGES = 16 * 2 ** 20
+# default bound on one chunk's unique-row slots
+CHUNK_ROWS = 4 * 2 ** 20
 
 
 def _round_up(x: int, m: int) -> int:
@@ -61,6 +70,50 @@ class DedupTiles:
             pos=None if self.pos is None else self.pos.to(device))
 
 
+@dataclass(frozen=True)
+class ChunkedDedupTiles:
+    """The dedup layout cut into chunks of ``tiles_per_chunk`` tiles,
+    each padded to one job count, so that a runner aggregates chunk by
+    chunk with W and the features resident (``gist_tpu/graph.py:196``).
+    ``u_senders`` and ``dir_blk`` index rows of the *permuted* features
+    ``x[perm]``; output rows come in kernel order and ``pos`` takes them
+    to node order.
+
+    Split layout: when ``is_dir`` is set, a job with ``is_dir == 1``
+    reads the CU-row block ``x[perm][dir_blk * CU : +CU]`` straight from
+    the features (a *direct* job); any other reads the CU *remote* slots
+    ``u_senders[c, rem_blk * CU : +CU]``, which then hold only the
+    remote slots ((n_chunks, rem_pad * CU))."""
+
+    u_senders: torch.Tensor    # (n_chunks, jobs_pad * CU) or (.., rem_pad*CU)
+    w_blocks: torch.Tensor     # (n_chunks, jobs_pad, TN, CU) int8
+    job_offsets: torch.Tensor  # (n_chunks, tiles_per_chunk + 1) int32
+    pos: Optional[torch.Tensor]   # (N,) int32 node -> output row
+    perm: Optional[torch.Tensor]  # (N,) int32 output row -> node
+    dir_blk: Optional[torch.Tensor] = None  # (n_chunks, jobs_pad) int32
+    rem_blk: Optional[torch.Tensor] = None  # (n_chunks, jobs_pad) int32
+    is_dir: Optional[torch.Tensor] = None   # (n_chunks, jobs_pad) int32
+    tile_rows: int = 64
+    cu: int = 1024
+    max_jobs: int = 0          # per tile
+    num_tiles: int = 0
+
+    @property
+    def n_chunks(self) -> int:
+        return self.w_blocks.shape[0]
+
+    @property
+    def tiles_per_chunk(self) -> int:
+        return self.job_offsets.shape[1] - 1
+
+    def to(self, device) -> "ChunkedDedupTiles":
+        return dataclasses.replace(self, **{
+            f: None if getattr(self, f) is None else getattr(self, f).to(
+                device)
+            for f in ("u_senders", "w_blocks", "job_offsets", "pos", "perm",
+                      "dir_blk", "rem_blk", "is_dir")})
+
+
 def _locality_order(senders: np.ndarray, receivers: np.ndarray,
                     n_nodes: int, tile_rows: int, seed: int = 0):
     """Tile-sized cluster ordering (refined multilevel partition) so a
@@ -93,19 +146,25 @@ def pad_dedup_tiles(d: DedupTiles, jobs_to: int,
 
 def _dedup_tile_scan(senders: np.ndarray, receivers: np.ndarray,
                      n_nodes: int, tile_rows: int, cu: int,
-                     reorder: bool, seed: int):
+                     reorder: bool, seed: int, permute_u: bool = False):
     """Host-side build of the dedup layout: per destination tile, the
     padded unique-sender list and int8 count blocks, from one global
     sort over (tile, sender) pairs.  Returns (u_flat, w_flat,
-    job_offsets, pos) or None when there is no edge or an int8 count
-    would overflow (extreme multigraph)."""
+    job_offsets, pos, perm) or None when there is no edge or an int8
+    count would overflow (extreme multigraph).  ``permute_u`` emits the
+    unique senders in the locality-permuted space (``perm`` set), as
+    the chunked layout keeps them; W indices are int64 throughout (the
+    flat scan of a Reddit-scale graph indexes ~3e9 W slots)."""
     senders = np.asarray(senders, dtype=np.int64)
     receivers = np.asarray(receivers, dtype=np.int64)
-    pos = None
+    pos = perm = None
     if reorder and n_nodes > 2 * tile_rows:
-        _, pos = _locality_order(senders, receivers, n_nodes, tile_rows,
-                                 seed=seed)
+        order_perm, pos = _locality_order(senders, receivers, n_nodes,
+                                          tile_rows, seed=seed)
         r = pos[receivers]
+        if permute_u:
+            perm = order_perm
+            senders = pos[senders]
     else:
         r = receivers
     if len(senders) == 0:
@@ -152,7 +211,7 @@ def _dedup_tile_scan(senders: np.ndarray, receivers: np.ndarray,
     w_flat = np.zeros(total_jobs * tile_rows * cu, dtype=np.int8)
     w_flat[w_idx[starts]] = cnts.astype(np.int8)
     w_flat = w_flat.reshape(total_jobs, tile_rows, cu)
-    return u_flat, w_flat, job_offsets, pos
+    return u_flat, w_flat, job_offsets, pos, perm
 
 
 def _build_dedup_tiles(senders: np.ndarray, receivers: np.ndarray,
@@ -166,7 +225,7 @@ def _build_dedup_tiles(senders: np.ndarray, receivers: np.ndarray,
                             reorder, seed)
     if scan is None:
         return None
-    u_flat, w_flat, job_offsets, pos = scan
+    u_flat, w_flat, job_offsets, pos, _ = scan
     if w_flat.nbytes > max_w_bytes:
         return None
     return DedupTiles(
@@ -176,6 +235,225 @@ def _build_dedup_tiles(senders: np.ndarray, receivers: np.ndarray,
         pos=None if pos is None else torch.from_numpy(pos.astype(np.int32)),
         tile_rows=tile_rows, cu=cu,
         max_jobs=int(np.diff(job_offsets).max()))
+
+
+def _build_dedup_chunked(senders: np.ndarray, receivers: np.ndarray,
+                         n_nodes: int, *, tile_rows: int = 128,
+                         cu: int = 1024, reorder: bool = True, seed: int = 0,
+                         chunk_rows: int = CHUNK_ROWS,
+                         ) -> Optional[ChunkedDedupTiles]:
+    """Chunked layout (``gist_tpu/graph.py:371``): the flat scan's tiles
+    grouped into uniform chunks of ~``chunk_rows`` unique-row slots, all
+    padded to one job count.  A chunk's padding tiles repeat its last
+    job offset, so they have no jobs."""
+    scan = _dedup_tile_scan(senders, receivers, n_nodes, tile_rows, cu,
+                            reorder, seed, permute_u=True)
+    if scan is None:
+        return None
+    u_flat, w_flat, job_offsets, pos, perm = scan
+    num_tiles = len(job_offsets) - 1
+    jobs_per_tile = np.diff(job_offsets)
+    target_jobs = max(1, chunk_rows // cu)
+    mean_jobs = max(float(jobs_per_tile.mean()), 1e-9)
+    tpc = max(1, min(num_tiles, int(target_jobs / mean_jobs)))
+    n_chunks = -(-num_tiles // tpc)
+    chunk_lo = job_offsets[np.minimum(np.arange(n_chunks) * tpc, num_tiles)]
+    chunk_hi = job_offsets[np.minimum((np.arange(n_chunks) + 1) * tpc,
+                                      num_tiles)]
+    jobs_pad = int((chunk_hi - chunk_lo).max())
+    if jobs_pad == 0:
+        return None
+
+    w_out = np.zeros((n_chunks, jobs_pad, tile_rows, cu), dtype=np.int8)
+    u_out = np.zeros((n_chunks, jobs_pad * cu), dtype=np.int32)
+    offs_out = np.zeros((n_chunks, tpc + 1), dtype=np.int64)
+    for c in range(n_chunks):
+        lo, hi = int(chunk_lo[c]), int(chunk_hi[c])
+        w_out[c, :hi - lo] = w_flat[lo:hi]
+        u_out[c, :(hi - lo) * cu] = u_flat[lo * cu:hi * cu]
+        t0, t1 = c * tpc, min((c + 1) * tpc, num_tiles)
+        offs_out[c, :t1 - t0 + 1] = job_offsets[t0:t1 + 1] - lo
+        offs_out[c, t1 - t0 + 1:] = offs_out[c, t1 - t0]  # padding tiles
+    del w_flat
+    return ChunkedDedupTiles(
+        u_senders=torch.from_numpy(u_out),
+        w_blocks=torch.from_numpy(w_out),
+        job_offsets=torch.from_numpy(offs_out.astype(np.int32)),
+        pos=None if pos is None else torch.from_numpy(pos.astype(np.int32)),
+        perm=None if perm is None else torch.from_numpy(
+            perm.astype(np.int32)),
+        tile_rows=tile_rows, cu=cu,
+        max_jobs=int(jobs_per_tile.max()), num_tiles=num_tiles)
+
+
+def _ffill(values: np.ndarray, has_value: np.ndarray,
+           fill0: int = 0) -> np.ndarray:
+    """Carry each marked value forward over unmarked positions (leading
+    unmarked positions get ``fill0``)."""
+    idx = np.where(has_value, np.arange(len(values)), -1)
+    np.maximum.accumulate(idx, out=idx)
+    return np.where(idx >= 0, values[np.maximum(idx, 0)], fill0)
+
+
+def _build_dedup_split_chunked(senders: np.ndarray, receivers: np.ndarray,
+                               n_nodes: int, *, tile_rows: int = 64,
+                               cu: int = 1024, threshold: int = 128,
+                               chunk_rows: int = CHUNK_ROWS, seed: int = 0,
+                               ) -> Optional[ChunkedDedupTiles]:
+    """Chunked layout with the direct/remote split
+    (``gist_tpu/graph.py:431``): a (destination tile, CU-row source
+    block) pair with ``>= threshold`` edges becomes a direct job, whose
+    W block pairs with that source block of the permuted features; the
+    sparse remainder keeps unique remote slots.  Per tile, direct jobs
+    come first, then remote jobs.  Chunks hold uniform tile counts sized
+    by their remote rows.  The padding positions of ``dir_blk`` and
+    ``rem_blk`` carry the previous value forward, as the JAX package's
+    arrays do (the TPU pipeline skips refetches with them); the kernel reads
+    ``dir_blk`` only for direct jobs and ``rem_blk`` only for remote
+    ones."""
+    senders = np.asarray(senders, dtype=np.int64)
+    receivers = np.asarray(receivers, dtype=np.int64)
+    if len(senders) == 0:
+        return None
+    TN, CU = tile_rows, cu
+    order_perm, pos = _locality_order(senders, receivers, n_nodes, TN,
+                                      seed=seed)
+    s_p = pos[senders]
+    r_p = pos[receivers]
+    num_tiles = -(-n_nodes // TN)
+    n_blocks = -(-n_nodes // CU)
+    tile_of = r_p // TN
+    local_row = r_p - tile_of * TN
+    blk_of = s_p // CU
+    within_blk = s_p - blk_of * CU
+
+    # dense/sparse split over (tile, source-block) pairs
+    pk, p_inv, p_cnt = np.unique(tile_of * n_blocks + blk_of,
+                                 return_inverse=True, return_counts=True)
+    dense_pair = p_cnt >= threshold
+    edge_dense = dense_pair[p_inv]
+
+    # direct jobs: one per dense pair, tile-major (pk is sorted)
+    d_tile = (pk[dense_pair] // n_blocks).astype(np.int64)
+    d_blk = (pk[dense_pair] % n_blocks).astype(np.int64)
+    dir_per_tile = np.bincount(d_tile, minlength=num_tiles)
+    d_rank = np.arange(len(d_tile)) - np.searchsorted(d_tile, d_tile)
+
+    # remote slots: unique (tile, sender) over the sparse edges
+    sp_mask = ~edge_dense
+    uk, inv2 = np.unique(tile_of[sp_mask] * n_nodes + s_p[sp_mask],
+                         return_inverse=True)
+    u_tile = (uk // n_nodes).astype(np.int64)
+    u_node = (uk % n_nodes).astype(np.int64)
+    u_cnt = np.bincount(u_tile, minlength=num_tiles)
+    rem_per_tile = -(-u_cnt // CU)
+    u_start = np.zeros(num_tiles + 1, dtype=np.int64)
+    np.cumsum(u_cnt, out=u_start[1:])
+    pos_in_tile = np.arange(len(uk), dtype=np.int64) - u_start[u_tile]
+
+    jobs_per_tile = dir_per_tile + rem_per_tile
+    job_offsets = np.zeros(num_tiles + 1, dtype=np.int64)
+    np.cumsum(jobs_per_tile, out=job_offsets[1:])
+    if int(job_offsets[-1]) == 0:
+        return None
+    max_jobs = int(jobs_per_tile.max())
+    dir_job = job_offsets[d_tile] + d_rank
+    rem_job_of_slot = (job_offsets[u_tile] + dir_per_tile[u_tile]
+                       + pos_in_tile // CU)
+
+    # chunking: uniform tiles per chunk, by remote-row budget
+    target_rem = max(1, chunk_rows // CU)
+    mean_rem = max(float(rem_per_tile.mean()), 1e-9)
+    tpc = max(1, min(num_tiles, int(target_rem / mean_rem)))
+    n_chunks = -(-num_tiles // tpc)
+    t_lo = np.minimum(np.arange(n_chunks) * tpc, num_tiles)
+    t_hi = np.minimum((np.arange(n_chunks) + 1) * tpc, num_tiles)
+    chunk_job_lo = job_offsets[t_lo]
+    jobs_pad = int((job_offsets[t_hi] - chunk_job_lo).max())
+    if jobs_pad == 0:
+        return None
+    rem_offsets = np.zeros(num_tiles + 1, dtype=np.int64)
+    np.cumsum(rem_per_tile, out=rem_offsets[1:])
+    chunk_rem_lo = rem_offsets[t_lo]
+    rem_pad = max(int((rem_offsets[t_hi] - chunk_rem_lo).max()), 1)
+    chunk_of_tile = np.minimum(np.arange(num_tiles) // tpc, n_chunks - 1)
+
+    def padded_job(job_ids, tiles):
+        c = chunk_of_tile[tiles]
+        return c * jobs_pad + (job_ids - chunk_job_lo[c])
+
+    pj_dir = padded_job(dir_job, d_tile)                # per dense pair
+    pj_rem_slot = padded_job(rem_job_of_slot, u_tile)   # per remote slot
+
+    # W blocks, scattered straight into the padded layout (int64 index)
+    w_out = np.zeros((n_chunks * jobs_pad, TN, CU), dtype=np.int8)
+    w_idx_parts = []
+    if edge_dense.any():
+        pair_to_pj = np.full(len(pk), -1, dtype=np.int64)
+        pair_to_pj[np.nonzero(dense_pair)[0]] = pj_dir
+        w_idx_parts.append(
+            (pair_to_pj[p_inv[edge_dense]] * TN
+             + local_row[edge_dense]) * CU + within_blk[edge_dense])
+    if sp_mask.any():
+        w_idx_parts.append(
+            (pj_rem_slot[inv2].astype(np.int64) * TN
+             + local_row[sp_mask]) * CU + pos_in_tile[inv2] % CU)
+    w_idx = np.concatenate(w_idx_parts) if w_idx_parts else \
+        np.zeros(0, np.int64)
+    w_idx.sort(kind="stable")
+    boundary = np.empty(len(w_idx), dtype=bool)
+    if len(w_idx):
+        boundary[0] = True
+        np.not_equal(w_idx[1:], w_idx[:-1], out=boundary[1:])
+    starts = np.nonzero(boundary)[0]
+    cnts = np.diff(np.append(starts, len(w_idx)))
+    if cnts.max(initial=0) > 127:
+        return None  # int8 count overflow
+    w_out.reshape(-1)[w_idx[starts]] = cnts.astype(np.int8)
+    w_out = w_out.reshape(n_chunks, jobs_pad, TN, CU)
+
+    # remote ids, packed per chunk: remote-job rank within the chunk
+    c_of_slot = chunk_of_tile[u_tile]
+    rem_rank = (rem_job_of_slot
+                - (job_offsets[u_tile] + dir_per_tile[u_tile])
+                + rem_offsets[u_tile] - chunk_rem_lo[c_of_slot])
+    u_out = np.zeros((n_chunks, rem_pad * CU), dtype=np.int32)
+    u_out.reshape(-1)[c_of_slot * (rem_pad * CU) + rem_rank * CU
+                      + pos_in_tile % CU] = u_node
+
+    # per-job arrays
+    is_dir = np.zeros(n_chunks * jobs_pad, dtype=np.int32)
+    is_dir[pj_dir] = 1
+    dblk_vals = np.zeros(n_chunks * jobs_pad, dtype=np.int64)
+    dblk_vals[pj_dir] = d_blk
+    dir_blk = _ffill(dblk_vals, is_dir.astype(bool)).astype(np.int32)
+    rem_jobs_pj = np.unique(pj_rem_slot) if sp_mask.any() else \
+        np.zeros(0, np.int64)
+    rblk_vals = np.zeros(n_chunks * jobs_pad, dtype=np.int64)
+    has_rem = np.zeros(n_chunks * jobs_pad, dtype=bool)
+    if len(rem_jobs_pj):
+        order = np.argsort(pj_rem_slot, kind="stable")
+        firsts = order[np.searchsorted(pj_rem_slot[order], rem_jobs_pj)]
+        rblk_vals[rem_jobs_pj] = rem_rank[firsts]
+        has_rem[rem_jobs_pj] = True
+    rem_blk = np.minimum(_ffill(rblk_vals, has_rem).astype(np.int32),
+                         rem_pad - 1)
+
+    offs_out = np.zeros((n_chunks, tpc + 1), dtype=np.int64)
+    for c in range(n_chunks):
+        a, b = int(t_lo[c]), int(t_hi[c])
+        offs_out[c, :b - a + 1] = job_offsets[a:b + 1] - chunk_job_lo[c]
+        offs_out[c, b - a + 1:] = offs_out[c, b - a]
+
+    def conv(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+    return ChunkedDedupTiles(
+        u_senders=torch.from_numpy(u_out), w_blocks=torch.from_numpy(w_out),
+        job_offsets=conv(offs_out), pos=conv(pos), perm=conv(order_perm),
+        dir_blk=conv(dir_blk.reshape(n_chunks, jobs_pad)),
+        rem_blk=conv(rem_blk.reshape(n_chunks, jobs_pad)),
+        is_dir=conv(is_dir.reshape(n_chunks, jobs_pad)),
+        tile_rows=TN, cu=CU, max_jobs=max_jobs, num_tiles=num_tiles)
 
 
 @dataclass(frozen=True)
@@ -196,6 +474,9 @@ class Graph:
     n_edges: int
     dedup: Optional[DedupTiles] = None    # forward dedup layout
     dedup_t: Optional[DedupTiles] = None  # transpose layout (backward)
+    # chunked or split layouts, for graphs too large for the flat one
+    dedup_c: Optional[ChunkedDedupTiles] = None
+    dedup_c_t: Optional[ChunkedDedupTiles] = None
 
     def replace(self, **kw) -> "Graph":
         return dataclasses.replace(self, **kw)
@@ -208,13 +489,14 @@ class Graph:
             out_degrees=self.in_degrees, t_senders=self.senders,
             t_receivers=self.receivers, t_indptr=self.indptr,
             n_nodes=self.n_nodes, n_edges=self.n_edges,
-            dedup=self.dedup_t, dedup_t=self.dedup)
+            dedup=self.dedup_t, dedup_t=self.dedup,
+            dedup_c=self.dedup_c_t, dedup_c_t=self.dedup_c)
 
     def to(self, device) -> "Graph":
         fields = {f.name: getattr(self, f.name)
                   for f in dataclasses.fields(self)}
         for k, v in fields.items():
-            if isinstance(v, (torch.Tensor, DedupTiles)):
+            if isinstance(v, (torch.Tensor, DedupTiles, ChunkedDedupTiles)):
                 fields[k] = v.to(device)
         return Graph(**fields)
 
@@ -222,29 +504,52 @@ class Graph:
     def n_edges_padded(self) -> int:
         return self.senders.shape[0]
 
-    def with_tiles(self) -> "Graph":
-        """Return a copy carrying the flat dedup layouts (forward and
-        transpose), rebuilt on the host from the edge arrays; a no-op if
-        present.  Where the JAX package would fall back to its chunked
-        or v1 layout, this raises, as those layouts are not ported."""
-        if self.dedup is not None:
-            return self
-        if self.n_edges > 16 * 2 ** 20:
-            raise NotImplementedError(
-                "graphs above 16M edges take the chunked dedup layout, "
-                "which a later slice ports")
+    def with_tiles(self, tile_rows: int = 128, mode: str = "dedup",
+                   chunk_rows: Optional[int] = None,
+                   transpose: bool = True) -> "Graph":
+        """Return a copy carrying the dedup layouts, rebuilt on the host
+        from the edge arrays; a no-op if present
+        (``gist_tpu/graph.py:667``).
+
+        ``mode="dedup"`` builds the flat layout pair, or the chunked
+        pair above ``HUGE_EDGES`` edges; ``mode="dedup-chunked"`` forces
+        the chunked pair.  ``chunk_rows`` (default ``CHUNK_ROWS``)
+        bounds one chunk's unique-row slots.  ``transpose=False`` skips
+        the chunked transpose layout, for forward-only consumers.  Where
+        the JAX package falls back to the v1 gather layout (or is asked
+        for it with ``mode="gather"``) this raises: that layout is the
+        port's fourth slice."""
+        if mode not in ("dedup", "dedup-chunked", "gather"):
+            raise ValueError(f"unknown tile mode {mode!r}")
+        chunk_rows = CHUNK_ROWS if chunk_rows is None else chunk_rows
         e = self.n_edges
         s, r = self.senders[:e].numpy(), self.receivers[:e].numpy()
         t_s, t_r = self.t_senders[:e].numpy(), self.t_receivers[:e].numpy()
-        d = _build_dedup_tiles(s, r, self.n_nodes)
-        d_t = None if d is None else _build_dedup_tiles(t_s, t_r,
-                                                        self.n_nodes)
-        if d is None or d_t is None:
-            raise NotImplementedError(
-                "no flat dedup layout for this graph; the JAX package "
-                "falls back to the v1 gather layout, which a later slice "
-                "ports")
-        return self.replace(dedup=d, dedup_t=d_t)
+        huge = e > HUGE_EDGES
+        if mode == "dedup-chunked" or (mode == "dedup" and huge):
+            if self.dedup_c is not None or self.dedup is not None:
+                return self
+            d = _build_dedup_chunked(s, r, self.n_nodes, tile_rows=tile_rows,
+                                     chunk_rows=chunk_rows)
+            if d is not None and not transpose:
+                return self.replace(dedup_c=d)
+            d_t = None if d is None else _build_dedup_chunked(
+                t_s, t_r, self.n_nodes, tile_rows=tile_rows,
+                chunk_rows=chunk_rows)
+            if d is not None and d_t is not None:
+                return self.replace(dedup_c=d, dedup_c_t=d_t)
+            mode = "dedup" if mode == "dedup" and not huge else "gather"
+        if mode == "dedup":
+            if self.dedup is not None:
+                return self
+            d = _build_dedup_tiles(s, r, self.n_nodes, tile_rows=tile_rows)
+            d_t = None if d is None else _build_dedup_tiles(
+                t_s, t_r, self.n_nodes, tile_rows=tile_rows)
+            if d is not None and d_t is not None:
+                return self.replace(dedup=d, dedup_t=d_t)
+        raise NotImplementedError(
+            "this graph needs the v1 gather layout (TiledCSR), which the "
+            "port's fourth slice brings")
 
     def __repr__(self) -> str:  # pragma: no cover
         return (f"Graph(n_nodes={self.n_nodes}, n_edges={self.n_edges}, "
@@ -309,6 +614,18 @@ def graph_from_edges(senders, receivers, n_nodes: int, *,
     if tiles:
         g = g.with_tiles()
     return g
+
+
+def add_self_loops(senders, receivers, n_nodes: int, *, dedup: bool = True):
+    """Drop existing self loops (``dedup``) and append one per node
+    (``gist_tpu/graph.py:808``)."""
+    senders = np.asarray(senders, dtype=np.int64)
+    receivers = np.asarray(receivers, dtype=np.int64)
+    if dedup:
+        keep = senders != receivers
+        senders, receivers = senders[keep], receivers[keep]
+    loop = np.arange(n_nodes, dtype=np.int64)
+    return np.concatenate([senders, loop]), np.concatenate([receivers, loop])
 
 
 def subgraph(senders, receivers, node_ids, n_nodes: int):

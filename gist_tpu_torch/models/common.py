@@ -49,6 +49,16 @@ def torch_linear_uniform(generator: torch.Generator, shape, fan_in: int,
     return u * (2 * stdv) - stdv
 
 
+def glorot_uniform(generator: torch.Generator, shape,
+                   dtype=torch.float32) -> torch.Tensor:
+    """xavier_uniform over (in, out): U(-l, l), l = sqrt(6 / (fan_in +
+    fan_out)) — the GraphConv weight init."""
+    limit = float(np.sqrt(6.0 / (shape[0] + shape[-1])))
+    u = torch.rand(shape, generator=generator, dtype=dtype,
+                   device=generator.device)
+    return u * (2 * limit) - limit
+
+
 def xavier_normal_gain(generator: torch.Generator, shape, gain: float,
                        dtype=torch.float32) -> torch.Tensor:
     """xavier_normal_ with an explicit gain: std = gain * sqrt(2 /

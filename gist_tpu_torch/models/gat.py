@@ -10,8 +10,10 @@ it like the SAGE stack.
 
 The attention runs through K4–K6 (``ops/gat_dedup.py``) when the
 backend resolves to ``dedup`` (a graph on the card with the dedup
-layout pair) and through the segment composite otherwise.  As in the
-JAX package, all heads share one kernel call when
+layout pair) and through the segment composite otherwise.  A graph
+that carries the chunked layout (``dedup_c``) takes K4 once per chunk
+on an explicit ``dedup``, as the JAX package's ``pallas`` route does.
+As in the JAX package, all heads share one kernel call when
 ``heads * ceil(out / 128) * 128 <= 1024`` and take one call per head
 beyond that.
 """
@@ -82,6 +84,14 @@ def _multi_head_layer(graph: Graph, h: torch.Tensor, layer: dict,
     z = torch.einsum("nf,hfo->nho", h, w).contiguous()
     src = torch.einsum("nho,ho->nh", z, attn[:, :d_out])
     dst = torch.einsum("nho,ho->nh", z, attn[:, d_out:])
+    if backend == "dedup" and graph.dedup_c is not None:
+        from gist_tpu_torch.ops.gat_dedup import gat_attention_dedup_chunked
+        groups = ([slice(None)] if heads * (-(-d_out // 128) * 128) <= 1024
+                  else [slice(hd, hd + 1) for hd in range(heads)])
+        out = torch.cat([gat_attention_dedup_chunked(
+            graph, z[:, g], src[:, g], dst[:, g], negative_slope)
+            for g in groups], dim=1)
+        return out.mean(dim=1)
     if backend == "dedup":
         from gist_tpu_torch.ops.gat_dedup import (gat_attention_dedup,
                                                   gat_attention_dedup_mh)

@@ -1,4 +1,5 @@
-"""Layer primitives of the SAGE stack — pure functions over tensors.
+"""Layer primitives of the SAGE and GCN stacks — pure functions over
+tensors.
 
 Dense weights keep the JAX package's ``(in, out)`` layout, so the
 forward is ``x @ w`` and JAX parameters load unchanged.
@@ -12,6 +13,15 @@ import torch
 
 from gist_tpu_torch.graph import Graph
 from gist_tpu_torch.ops.spmm import aggregate
+
+
+def whole_tensor_layer_norm(h: torch.Tensor,
+                            eps: float = 1e-5) -> torch.Tensor:
+    """``F.layer_norm(h, h.shape)``: the GCN normalises over the whole
+    activation tensor, all nodes jointly, not per row."""
+    mean = h.mean()
+    var = (h - mean).square().mean()
+    return (h - mean) * torch.rsqrt(var + eps)
 
 
 def layer_norm(h: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -61,6 +71,42 @@ def sage_layer(
     h = h.to(dt) @ params["w"].to(dt) + params["b"].to(dt)
     if use_layer_norm:
         h = layer_norm(h)
+    if activation is not None:
+        h = activation(h)
+    return h
+
+
+def _rsqrt_degree(deg: torch.Tensor) -> torch.Tensor:
+    return torch.where(deg > 0, torch.rsqrt(deg.clamp(min=1.0)),
+                       torch.zeros_like(deg))[:, None]
+
+
+def graph_conv(
+    graph: Graph,
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor],
+    *,
+    activation=None,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """GraphConv with ``norm='both'``: ``act(D_in^-1/2 A D_out^-1/2 x w
+    + b)``, degree-0 norms 0 (``gist_tpu/models/layers.py:56``).  The
+    projection goes first when ``in_feats > out_feats``, so the
+    aggregation runs at the narrower width.  Dtypes promote as in the
+    JAX package: the fp32 norms lift a bf16 stack's aggregation (and the
+    products after it) to fp32."""
+    in_feats, out_feats = w.shape
+    src_norm = _rsqrt_degree(graph.out_degrees)
+    dst_norm = _rsqrt_degree(graph.in_degrees)
+    if in_feats > out_feats:
+        h = (x @ w.to(x.dtype)) * src_norm
+        h = aggregate(graph, h, backend=backend) * dst_norm
+    else:
+        h = aggregate(graph, x * src_norm, backend=backend) * dst_norm
+        h = h @ w.to(h.dtype)
+    if b is not None:
+        h = h + b
     if activation is not None:
         h = activation(h)
     return h

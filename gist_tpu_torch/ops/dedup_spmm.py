@@ -2,11 +2,12 @@
 PyTorch version and its gradient.
 
 Counterpart of the dedup branches of ``gist_tpu/ops/pallas_spmm.py``
-(``_dedup_kernel``, ``_spmm_dedup_call``, ``_run_dedup`` and the
-``spmm_pallas_csr`` custom VJP).  The kernel source is
-``gist_tpu_torch/csrc/dedup_spmm.cu``; it is compiled by ``nvcc`` for
-``sm_90a`` into ``gist_tpu_torch/_build/`` at first use and loaded with
-ctypes through a plain C interface.
+(``_dedup_kernel``, ``_spmm_dedup_call``, ``_run_dedup``,
+``_run_dedup_chunked`` and the ``spmm_pallas_csr`` custom VJP, whose
+split-layout branch runs K2 from :mod:`gist_tpu_torch.ops.split_spmm`).
+The kernel source is ``gist_tpu_torch/csrc/dedup_spmm.cu``; it is
+compiled by ``nvcc`` for ``sm_90a`` into ``gist_tpu_torch/_build/`` at
+first use and loaded with ctypes through a plain C interface.
 
 :func:`dedup_spmm` launches the kernel for a CUDA tensor and runs
 :func:`dedup_spmm_reference` (the same tile and job walk in plain
@@ -20,10 +21,11 @@ import ctypes
 import os
 import shutil
 import subprocess
+from typing import Optional
 
 import torch
 
-from gist_tpu_torch.graph import DedupTiles, Graph
+from gist_tpu_torch.graph import ChunkedDedupTiles, DedupTiles, Graph
 
 TILE_ROWS = 128
 CU = 1024
@@ -119,20 +121,28 @@ def _check(job_offsets, w_blocks, u_senders, x):
 
 
 def dedup_spmm(job_offsets: torch.Tensor, w_blocks: torch.Tensor,
-               u_senders: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(num_tiles * 128, F) kernel-order aggregation in x's dtype.
+               u_senders: torch.Tensor, x: torch.Tensor,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(num_tiles * 128, F) kernel-order aggregation in x's dtype,
+    written into ``out`` when given.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the
     plain version; no other device is accepted."""
     global launches
     if x.device.type == "cpu":
-        return dedup_spmm_reference(job_offsets, w_blocks, u_senders, x)
+        res = dedup_spmm_reference(job_offsets, w_blocks, u_senders, x)
+        return res if out is None else out.copy_(res)
     if x.device.type != "cuda":
         raise ValueError(f"dedup_spmm runs on cuda or cpu, not {x.device}")
     _check(job_offsets, w_blocks, u_senders, x)
     num_tiles = job_offsets.shape[0] - 1
-    out = torch.empty((num_tiles * TILE_ROWS, x.shape[1]), dtype=x.dtype,
-                      device=x.device)
+    shape = (num_tiles * TILE_ROWS, x.shape[1])
+    if out is None:
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    elif (out.shape != shape or out.dtype != x.dtype
+          or out.device != x.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {shape} tensor in "
+                         f"{x.dtype} on {x.device}")
     lib = _load()
     fn = lib.dedup_spmm_f32 if x.dtype == torch.float32 else \
         lib.dedup_spmm_bf16
@@ -158,23 +168,74 @@ def run_dedup(t: DedupTiles, x: torch.Tensor, n_nodes: int) -> torch.Tensor:
     return out[:n_nodes]
 
 
+def run_dedup_chunked(t: ChunkedDedupTiles, x: torch.Tensor,
+                      n_nodes: int) -> torch.Tensor:
+    """``gist_tpu/ops/pallas_spmm.py:_run_dedup_chunked`` and
+    ``_run_dedup_split_chunked``: permute x once (the chunks index
+    ``x[perm]``), run K1 once per chunk, or K2 once per chunk on a split
+    layout (``t.is_dir`` set), into its slice of one output, and take the
+    rows to node order.  A chunk's padding tiles have no jobs, so the
+    kernel writes zeros there; K2 reads zero for direct rows past the
+    last, so x's rows are not padded."""
+    if t.max_jobs == 0:
+        return torch.zeros((n_nodes, x.shape[1]), dtype=x.dtype,
+                           device=x.device)
+    if t.perm is not None:
+        x = x.index_select(0, t.perm)
+    x = x.contiguous()
+    rows = t.tiles_per_chunk * t.tile_rows
+    out = torch.empty((t.n_chunks * rows, x.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    # here, not at the top: split_spmm imports this module
+    from gist_tpu_torch.ops.split_spmm import split_spmm
+    for c in range(t.n_chunks):
+        out_c = out[c * rows:(c + 1) * rows]
+        if t.is_dir is None:
+            dedup_spmm(t.job_offsets[c], t.w_blocks[c], t.u_senders[c], x,
+                       out=out_c)
+        else:
+            split_spmm(t.job_offsets[c], t.dir_blk[c], t.rem_blk[c],
+                       t.is_dir[c], t.w_blocks[c], t.u_senders[c], x,
+                       out=out_c)
+    if t.pos is not None:
+        return out.index_select(0, t.pos)
+    return out[:n_nodes]
+
+
+def run_layout(t, x: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Aggregate over a flat, chunked or split layout, dispatching as
+    ``_spmm_forward``/``_spmm_bwd`` do: K1, K1 per chunk, or K2."""
+    if isinstance(t, DedupTiles):
+        return run_dedup(t, x, n_nodes)
+    return run_dedup_chunked(t, x, n_nodes)
+
+
 class _DedupSpMM(torch.autograd.Function):
     """Gradient of the dedup aggregation: dx = A^T g, the same kernel on
     the transpose layout; the layouts take no gradient."""
 
     @staticmethod
-    def forward(ctx, x, fwd: DedupTiles, bwd: DedupTiles, n_nodes: int):
+    def forward(ctx, x, fwd, bwd, n_nodes: int):
         ctx.bwd, ctx.n_nodes = bwd, n_nodes
-        return run_dedup(fwd, x, n_nodes)
+        return run_layout(fwd, x, n_nodes)
 
     @staticmethod
     def backward(ctx, g):
-        return run_dedup(ctx.bwd, g, ctx.n_nodes), None, None, None
+        if ctx.bwd is None:
+            raise NotImplementedError(
+                "graph carries no transpose layout (built with "
+                "transpose=False): its aggregation takes no gradient")
+        return run_layout(ctx.bwd, g.contiguous(), ctx.n_nodes), None, None, \
+            None
 
 
 def spmm_dedup(graph: Graph, x: torch.Tensor) -> torch.Tensor:
-    """``out[i] = sum_{(s, i)} x[s]`` through K1, differentiable in x."""
-    if graph.dedup is None or graph.dedup_t is None:
+    """``out[i] = sum_{(s, i)} x[s]`` through K1 (flat or per chunk) or
+    K2 (split layout), differentiable in x.  Forward and backward pick
+    their layouts independently, flat first."""
+    fwd = graph.dedup if graph.dedup is not None else graph.dedup_c
+    bwd = graph.dedup_t if graph.dedup_t is not None else graph.dedup_c_t
+    if fwd is None:
         raise ValueError("graph carries no dedup layout (build it with "
                          "tiles=True)")
-    return _DedupSpMM.apply(x, graph.dedup, graph.dedup_t, graph.n_nodes)
+    return _DedupSpMM.apply(x, fwd, bwd, graph.n_nodes)

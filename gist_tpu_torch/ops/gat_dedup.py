@@ -20,16 +20,20 @@ and jobs) for CPU tensors; ``launches_fwd``, ``launches_b1`` and
 (one head) are differentiable.  Their backward runs K5 and K6 once per
 head (``set_gat_backward("fused")``, the default) or autograd through the
 segment composite (``"xla"``, the exact reference).
+:func:`gat_attention_dedup_chunked` runs K4 once per chunk of the
+chunked layout (the full-graph attention of graphs too large for the
+flat one); its backward is the segment composite, head by head.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+from typing import Optional
 
 import torch
 
-from gist_tpu_torch.graph import DedupTiles, Graph
+from gist_tpu_torch.graph import ChunkedDedupTiles, DedupTiles, Graph
 from gist_tpu_torch.ops import dedup_spmm
 from gist_tpu_torch.ops.dedup_spmm import CU, TILE_ROWS
 
@@ -246,14 +250,16 @@ def _suffix(dtype):
 
 
 def gat_fwd(job_offsets, w_blocks, u_senders, z, src, dst_rows,
-            negative_slope: float):
+            negative_slope: float, out: Optional[torch.Tensor] = None):
     """K4: (out (tiles*TN, H, O) in z's dtype, m, l (tiles*TN, H) fp32)
     in kernel row order from z (N, H, O), src (N, H) and dst_rows
-    (tiles*TN, H)."""
+    (tiles*TN, H); the attention output is written into ``out`` when
+    given."""
     global launches_fwd
     if _device(z, "gat_fwd").type == "cpu":
-        return gat_fwd_reference(job_offsets, w_blocks, u_senders, z, src,
-                                 dst_rows, negative_slope)
+        res, m, l = gat_fwd_reference(job_offsets, w_blocks, u_senders, z,
+                                      src, dst_rows, negative_slope)
+        return (res if out is None else out.copy_(res)), m, l
     dev = z.device
     num_tiles = job_offsets.shape[0] - 1
     rows = num_tiles * TILE_ROWS
@@ -264,7 +270,9 @@ def gat_fwd(job_offsets, w_blocks, u_senders, z, src, dst_rows,
     _check("gat_fwd", (job_offsets, w_blocks, u_senders), {
         "z": (z, z.shape, _FEAT), "src": (src, (n, heads), _F32),
         "dst_rows": (dst_rows, (rows, heads), _F32)}, dev)
-    out = torch.empty((rows, heads, o), dtype=z.dtype, device=dev)
+    if out is None:
+        out = torch.empty((rows, heads, o), dtype=z.dtype, device=dev)
+    _check("gat_fwd", (), {"out": (out, (rows, heads, o), (z.dtype,))}, dev)
     m = torch.empty((rows, heads), dtype=torch.float32, device=dev)
     l = torch.empty((rows, heads), dtype=torch.float32, device=dev)
     fn = getattr(_load(), f"gat_fwd_{_suffix(z.dtype)}")
@@ -471,3 +479,78 @@ def gat_attention_dedup(graph: Graph, z: torch.Tensor, src_score,
     _require_layouts(graph)
     return _GATDedup.apply(z[:, None], src_score[:, None],
                            dst_score[:, None], graph, negative_slope)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# The chunked layout: K4 once per chunk, the composite backward
+# ---------------------------------------------------------------------------
+
+
+def _forward_chunked(t: ChunkedDedupTiles, n: int, z, src, dst,
+                     negative_slope):
+    """``_mh_tiles_raw_chunked``: z (n, H, O), src/dst (n, H) -> out
+    (n, H, O).  z and the source scores are permuted once (the chunks'
+    slots index ``z[perm]``), the destination scores scattered into
+    kernel rows by ``pos``; chunks partition the destination tiles, so
+    each row's whole softmax lives in one chunk, and K4 writes each
+    chunk into its slice of one output."""
+    rows = t.tiles_per_chunk * t.tile_rows
+    heads = z.shape[1]
+    if t.perm is not None:
+        z, src = z.index_select(0, t.perm), src.index_select(0, t.perm)
+    z, src = z.contiguous(), src.float().contiguous()
+    dst_rows = dst.new_zeros((t.n_chunks * rows, heads), dtype=torch.float32)
+    if t.pos is not None:
+        dst_rows[t.pos.long()] = dst.float()
+    else:
+        dst_rows[:n] = dst.float()
+    out = z.new_empty((t.n_chunks * rows, heads, z.shape[2]))
+    for c in range(t.n_chunks):
+        part = slice(c * rows, (c + 1) * rows)
+        gat_fwd(t.job_offsets[c], t.w_blocks[c], t.u_senders[c], z, src,
+                dst_rows[part], negative_slope, out=out[part])
+    return out.index_select(0, t.pos) if t.pos is not None else out[:n]
+
+
+class _GATDedupChunked(torch.autograd.Function):
+    """All-heads attention over ``graph.dedup_c``.  The backward
+    recomputes the attention with the segment composite and
+    differentiates it, one head at a time (full-graph GAT at this scale
+    is an eval path in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, z, src, dst, graph: Graph, negative_slope: float):
+        ctx.save_for_backward(z, src, dst)
+        ctx.graph, ctx.negative_slope = graph, negative_slope
+        return _forward_chunked(graph.dedup_c, graph.n_nodes, z, src, dst,
+                                negative_slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        from gist_tpu_torch.ops.segment import gat_attention_segment
+        z, src, dst = ctx.saved_tensors
+        parts = []
+        with torch.enable_grad():
+            for h in range(z.shape[1]):
+                leaves = [t[:, h].detach().requires_grad_(True)
+                          for t in (z, src, dst)]
+                ref = gat_attention_segment(ctx.graph, *leaves,
+                                            ctx.negative_slope)
+                parts.append(torch.autograd.grad(ref, leaves, g[:, h]))
+        dz, dsrc, ddst = (torch.stack(p, dim=1) for p in zip(*parts))
+        return dz, dsrc, ddst, None, None
+
+
+def gat_attention_dedup_chunked(graph: Graph, z: torch.Tensor, src_score,
+                                dst_score, negative_slope: float = 0.01):
+    """All-heads dedup attention over the chunked layout
+    (``gist_tpu/ops/pallas_gat.py:gat_attention_dedup_chunked``): z
+    (N, H, O), scores (N, H) -> (N, H, O), one K4 launch per chunk."""
+    if graph.dedup_c is None:
+        raise ValueError("graph carries no chunked dedup layout (build it "
+                         "with with_tiles(mode='dedup-chunked'))")
+    if graph.dedup_c.is_dir is not None:
+        raise ValueError("the chunked attention takes the chunked layout, "
+                         "not the split one")
+    return _GATDedupChunked.apply(z, src_score, dst_score, graph,
+                                  negative_slope)

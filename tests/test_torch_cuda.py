@@ -250,3 +250,134 @@ def test_gat_kernels_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         G.gat_fwd(d64.job_offsets, d64.w_blocks, d64.u_senders, z, src,
                   torch.zeros((d64.num_tiles * 64, 2), device=cuda), 0.01)
+
+
+# --- K2: the split dedup SpMM; K1 per chunk -------------------------------
+
+
+def _split_edges(kind, rng):
+    """(senders, receivers, n, threshold) of a mixed, an all-remote and an
+    all-direct split layout: hub receivers fed from one source block
+    give dense (tile, block) pairs, a random scatter the sparse rest."""
+    n = 3000
+    hub_r = np.repeat(rng.integers(0, n, 20), 30)
+    hub_s = rng.integers(0, 1024, len(hub_r))
+    s = np.concatenate([hub_s, rng.integers(0, n, 4000)])
+    r = np.concatenate([hub_r, rng.integers(0, n, 4000)])
+    threshold = {"mixed": 8, "all_remote": 10 ** 9, "all_direct": 1}[kind]
+    return s, r, n, threshold
+
+
+@pytest.mark.parametrize("kind", ["mixed", "all_remote", "all_direct"])
+@pytest.mark.parametrize("tn,cu", [(64, 1024), (64, 512), (128, 1024),
+                                   (128, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_kernel_matches_plain(cuda, kind, tn, cu, dtype):
+    """K2 once per chunk against its plain version on the same inputs:
+    1e-5 relative to the plain result's max in fp32, 1e-2 in bf16; in
+    fp32 also against the dense product.  x's rows are not padded, so
+    the last direct block reads past N."""
+    from gist_tpu_torch.graph import _build_dedup_split_chunked
+    from gist_tpu_torch.ops import split_spmm as K2
+    rng = np.random.default_rng(5)
+    s, r, n, threshold = _split_edges(kind, rng)
+    t = _build_dedup_split_chunked(s, r, n, tile_rows=tn, cu=cu,
+                                   threshold=threshold, chunk_rows=1024)
+    direct = int(t.is_dir.sum())
+    assert {"mixed": direct > 0, "all_remote": direct == 0,
+            "all_direct": direct == int(t.job_offsets[:, -1].sum())}[kind]
+    # chunks are sized by remote rows: an all-direct layout has one
+    assert t.n_chunks > 1 or kind == "all_direct"
+    tc = t.to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, 100)).astype(np.float32))
+    xp = x.to(dtype).to(cuda)[tc.perm.long()].contiguous()
+    before = K2.launches
+    for c in range(tc.n_chunks):
+        lay = (tc.job_offsets[c], tc.dir_blk[c], tc.rem_blk[c], tc.is_dir[c],
+               tc.w_blocks[c], tc.u_senders[c])
+        got = K2.split_spmm(*lay, xp)
+        torch.cuda.synchronize()
+        want = K2.split_spmm_reference(*lay, xp)
+        assert got.dtype == dtype and got.shape == want.shape
+        err = _rel(got, want)
+        assert err <= (1e-5 if dtype == torch.float32 else 1e-2), err
+    assert K2.launches == before + tc.n_chunks
+    if dtype == torch.float32:
+        out = K.run_dedup_chunked(tc, x.to(cuda), n)
+        oracle = _dense(s, r, n) @ x.double().numpy()
+        np.testing.assert_allclose(out.cpu().numpy(), oracle, rtol=1e-5,
+                                   atol=1e-4)
+
+
+def test_split_aggregate_grad_runs_kernel(cuda):
+    """``aggregate`` on a graph with the split layout pair: K2 per chunk
+    forward and on the transpose layout backward, against the segment
+    path."""
+    from gist_tpu_torch.graph import _build_dedup_split_chunked
+    from gist_tpu_torch.ops import split_spmm as K2
+    rng = np.random.default_rng(6)
+    s, r, n, threshold = _split_edges("mixed", rng)
+    g = graph_from_edges(s, r, n)
+    m = g.n_edges
+    kw = dict(threshold=threshold, chunk_rows=4096)
+    g = g.replace(
+        dedup_c=_build_dedup_split_chunked(g.senders[:m].numpy(),
+                                           g.receivers[:m].numpy(), n, **kw),
+        dedup_c_t=_build_dedup_split_chunked(g.t_senders[:m].numpy(),
+                                             g.t_receivers[:m].numpy(), n,
+                                             **kw)).to(cuda)
+    x0 = torch.from_numpy(rng.standard_normal((n, 48)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((n, 48)).astype(np.float32))
+    w = w.to(cuda)
+    x = x0.to(cuda).requires_grad_(True)
+    before = K2.launches
+    out = aggregate(g, x)
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    assert K2.launches == before + g.dedup_c.n_chunks + g.dedup_c_t.n_chunks
+    xs = x0.to(cuda).requires_grad_(True)
+    want = spmm_segment(g, xs)
+    (want * w).sum().backward()
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(x.grad, xs.grad, rtol=1e-5, atol=1e-4)
+
+
+def test_chunked_runner_matches_flat_kernel(cuda):
+    """K1 once per chunk (permuted rows, one output buffer) against one
+    flat K1 launch on the same graph, forward and backward."""
+    rng = np.random.default_rng(7)
+    n = 3000
+    s, r = rng.integers(0, n, 40000), rng.integers(0, n, 40000)
+    g = graph_from_edges(s, r, n)
+    gc = g.with_tiles(mode="dedup-chunked", chunk_rows=8192).to(cuda)
+    gf = g.with_tiles().to(cuda)
+    assert gc.dedup_c.n_chunks > 2 and gc.dedup_c_t.n_chunks > 2
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        x0 = torch.from_numpy(rng.standard_normal((n, 96)).astype(
+            np.float32)).to(dtype)
+        before = K.launches
+        xc = x0.to(cuda).requires_grad_(True)
+        out = aggregate(gc, xc)
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert K.launches == before + gc.dedup_c.n_chunks \
+            + gc.dedup_c_t.n_chunks
+        xf = x0.to(cuda).requires_grad_(True)
+        want = aggregate(gf, xf)
+        want.float().square().sum().backward()
+        assert _rel(out, want) <= tol and _rel(xc.grad, xf.grad) <= tol
+
+
+def test_split_kernel_raises_instead_of_falling_back(cuda):
+    from gist_tpu_torch.graph import _build_dedup_split_chunked
+    from gist_tpu_torch.ops import split_spmm as K2
+    rng = np.random.default_rng(8)
+    s, r, n, _ = _split_edges("mixed", rng)
+    x = torch.ones((n, 8), device=cuda)
+    for tn, dtype in ((32, torch.float32), (64, torch.float64)):
+        t = _build_dedup_split_chunked(s, r, n, tile_rows=tn,
+                                       threshold=8).to(cuda)
+        lay = (t.job_offsets[0], t.dir_blk[0], t.rem_blk[0], t.is_dir[0],
+               t.w_blocks[0], t.u_senders[0])
+        with pytest.raises(ValueError if tn == 32 else TypeError):
+            K2.split_spmm(*lay, x.to(dtype))
