@@ -40,7 +40,18 @@ raising on failure:
     against its plain version and the segment aggregation;
 13. chunked GAT: a full-graph GAT h512 (2 heads, 2 layers) forward on
     the same graph's chunked layout through K4 once per chunk and layer,
-    against the segment path.
+    against the segment path;
+14. v1 kernels: K3 and K7-K9 against their plain versions on the v1
+    gather layout (``TiledCSR``), at the shapes of one batch of
+    ``ClusterSampler(synth-reddit-small, 10, 4, tile_mode="gather")``
+    and at the full synth-reddit-small graph's (the v1 main path's),
+    with times beside the bound, ``torch.sparse.mm`` (K3) and the
+    segment composite (K7-K9);
+15. v1 reference: one GAT h512 (2 heads, 2 layers) and one GCN h256
+    training run of two Adam steps on the full synth-reddit-small v1
+    graph through K7-K9 or K3 and through the segment path must agree;
+16. v1 main path: ``train_full_graph`` on that graph for 6 epochs with
+    GAT h512 (K7-K9) and with GCN h256 (K3), counting launches.
 
 Then the kernel summary line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card or
@@ -74,8 +85,9 @@ def phase_device(torch):
 
 def phase_build():
     """One nvcc per kernel source, all started together."""
-    from gist_tpu_torch.ops import dedup_spmm, gat_dedup, split_spmm
-    modules = [dedup_spmm, gat_dedup, split_spmm]
+    from gist_tpu_torch.ops import (dedup_spmm, gat_dedup, gat_tiled,
+                                    split_spmm, tiled_spmm)
+    modules = [dedup_spmm, gat_dedup, split_spmm, tiled_spmm, gat_tiled]
     os.makedirs(dedup_spmm.BUILD_DIR, exist_ok=True)
     t0 = time.time()
     procs = []
@@ -966,6 +978,340 @@ def phase_gat_chunked(torch, device, ds, graph):
     return launches
 
 
+def _v1_layout_bytes(t):
+    """Tile offsets and the senders and receivers of the slots up to
+    ``tile_offsets[-1]`` (padding slots past it are never read)."""
+    return t.tile_offsets.numel() * 4 + int(t.tile_offsets[-1]) * 8
+
+
+def _v1_row(torch, phase, name, case, got, want, tol, kernel, plain,
+            nbytes, flops, dtype, timers, plain_reps):
+    """Time a v1 kernel beside its plain version and the ``timers``
+    (name -> function or None); raise unless every output is finite and
+    within ``tol`` of the plain result relative to its max."""
+    torch.cuda.synchronize()
+    abs_err = rel_err = 0.0
+    for a, b in zip(got, want):
+        if not torch.isfinite(a.float()).all():
+            raise RuntimeError(f"{name} {case}: output is not finite")
+        err = float((a.float() - b.float()).abs().max())
+        abs_err = max(abs_err, err)
+        rel_err = max(rel_err, err / max(float(b.float().abs().max()),
+                                          1e-30))
+    bound_ms, bound_by = _bound(nbytes, flops, dtype)
+    row = {"phase": phase, "kernel": name, "case": case,
+           "max_abs_err": abs_err, "rel_err": rel_err, "tol": tol,
+           "ms": _median_ms(torch, kernel, reps=20),
+           "plain_ms": _median_ms(torch, plain, reps=plain_reps,
+                                  warmup=1),
+           **{k: None if fn is None else _median_ms(torch, fn, reps=5)
+              for k, fn in timers.items()},
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_bytes": nbytes, "useful_flops": flops}
+    emit(row)
+    if not rel_err <= tol:
+        raise RuntimeError(f"{name} disagrees with its plain version: {row}")
+    return row
+
+
+def _library_spmm(torch, g, dtype, device, transpose, x):
+    """``torch.sparse.mm`` on the node-order adjacency, or None where it
+    has no kernel for ``dtype``."""
+    adj = _csr_adjacency(torch, g, dtype, device, transpose=transpose)
+    try:
+        torch.sparse.mm(adj, x)
+    except RuntimeError:
+        return None
+    return lambda: torch.sparse.mm(adj, x)
+
+
+def _v1_kernel_rows(torch, device, g, phase, k3_cases, gat_cases,
+                    plain_reps):
+    """K3 (forward on ``tiled``, transpose on ``tiled_t``) and K7, K8, K9
+    on the host graph ``g``'s v1 pair, each against its plain walk.  The
+    bounds count each input byte once and each output byte once, against
+    the useful 2·E·F (K3) or 2·E·D (K7-K9) operations.  Returns the rows
+    by (kernel, case)."""
+    import numpy as np
+
+    from gist_tpu_torch.ops import gat_tiled as GT
+    from gist_tpu_torch.ops import tiled_spmm as K3
+    from gist_tpu_torch.ops.segment import gat_attention_segment
+
+    gd = g.to(device)
+    n, e = g.n_nodes, g.n_edges
+    rng = np.random.default_rng(0)
+
+    def randn(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(device)
+    rows = {}
+    for f, dtype in k3_cases:
+        x = randn(n, f).to(dtype)
+        item = x.element_size()
+        tag = str(dtype).split(".")[-1]
+        for direction, t in (("fwd", gd.tiled), ("bwd", gd.tiled_t)):
+            case = f"{direction} F={f} {tag}"
+            out_rows = t.num_tiles * t.tile_rows
+            rows[("K3", case)] = _v1_row(
+                torch, phase, "K3", case, (K3.tiled_spmm(t, x),),
+                (K3.tiled_spmm_reference(t, x),),
+                1e-5 if dtype == torch.float32 else 1e-2,
+                lambda: K3.tiled_spmm(t, x),
+                lambda: K3.tiled_spmm_reference(t, x),
+                _v1_layout_bytes(t) + (n + out_rows) * f * item,
+                2 * e * f, dtype,
+                {"library_ms": _library_spmm(torch, g, dtype, device,
+                                             direction == "bwd", x)},
+                plain_reps)
+    slope = 0.01
+    tf, tt = gd.tiled, gd.tiled_t
+    rows_f, rows_t = tf.num_tiles * tf.tile_rows, tt.num_tiles * tt.tile_rows
+    slots_f = int(tf.tile_offsets[-1])
+    for d, dtype in gat_cases:
+        tag = f"D={d} {str(dtype).split('.')[-1]}"
+        fp32 = dtype == torch.float32
+        tol = 1e-5 if fp32 else 1e-2
+        item = 4 if fp32 else 2
+        z, src, dst, gg = randn(n, d).to(dtype), randn(n), randn(n), \
+            randn(n, d)
+        out, m, l = GT.gat_tiled_fwd(tf, z, src, dst, slope)
+        want = GT.gat_tiled_fwd_reference(tf, z, src, dst, slope)
+        torch.cuda.synchronize()
+        has = want[2] > 0
+        if not (torch.all(m[~has] == -1e30) and torch.all(l[~has] == 0)
+                and torch.all(out[~has] == 0)):
+            raise RuntimeError(f"K7 {tag}: an empty row is not (0, -1e30, 0)")
+        # m against the plain max on the rows with edges (empty rows hold
+        # the -1e30 sentinel, checked above)
+        rows[("K7", tag)] = _v1_row(
+            torch, phase, "K7", tag,
+            (out, l, torch.where(has, m, 0.0)),
+            (want[0], want[2], torch.where(has, want[1], 0.0)), tol,
+            lambda: GT.gat_tiled_fwd(tf, z, src, dst, slope),
+            lambda: GT.gat_tiled_fwd_reference(tf, z, src, dst, slope),
+            _v1_layout_bytes(tf) + n * d * item + 2 * n * 4
+            + rows_f * (d * item + 8), 2 * e * d, dtype,
+            {"segment_ms": lambda: gat_attention_segment(gd, z, src, dst,
+                                                         slope)},
+            plain_reps)
+        b1 = (tf, z, src, dst, m, l, gg, slope)
+        ds, _ = GT.gat_tiled_bwd_b1(*b1)
+        b2 = (tt, ds, gg, src, dst, m, l, slope, dtype)
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (z.float(), src, dst)]
+        seg_out = gat_attention_segment(gd, *leaves, slope)
+
+        def seg_bwd():
+            return torch.autograd.grad(seg_out, leaves, gg,
+                                       retain_graph=True)
+        rows[("K8", tag)] = _v1_row(
+            torch, phase, "K8", tag, GT.gat_tiled_bwd_b1(*b1),
+            GT.gat_tiled_bwd_b1_reference(*b1), tol,
+            lambda: GT.gat_tiled_bwd_b1(*b1),
+            lambda: GT.gat_tiled_bwd_b1_reference(*b1),
+            _v1_layout_bytes(tf) + n * d * (item + 4) + 2 * n * 4
+            + rows_f * 12 + slots_f * 4, 2 * e * d, dtype,
+            {"segment_ms": seg_bwd}, plain_reps)
+        rows[("K9", tag)] = _v1_row(
+            torch, phase, "K9", tag, GT.gat_tiled_bwd_b2(*b2),
+            GT.gat_tiled_bwd_b2_reference(*b2), tol,
+            lambda: GT.gat_tiled_bwd_b2(*b2),
+            lambda: GT.gat_tiled_bwd_b2_reference(*b2),
+            _v1_layout_bytes(tt) + int(tt.tile_offsets[-1]) * 4
+            + slots_f * 4 + n * d * 4 + 2 * n * 4 + rows_f * 8
+            + rows_t * (d * item + 4), 2 * e * d, dtype,
+            {"segment_ms": seg_bwd}, plain_reps)
+        del z, gg, leaves, seg_out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _v1_shape(phase, g):
+    t, tt = g.tiled, g.tiled_t
+    emit({"phase": phase, "nodes": g.n_nodes, "edges": g.n_edges,
+          "tiles": t.num_tiles, "slots": int(t.tile_offsets[-1]),
+          "slots_padded": t.senders.shape[0], "max_chunks": t.max_chunks,
+          "tiles_t": tt.num_tiles, "slots_t": int(tt.tile_offsets[-1]),
+          "max_chunks_t": tt.max_chunks})
+
+
+def phase_v1_kernels(torch, device, ds):
+    """K3 at F=602 and 256 fp32 and 256 bf16, K7-K9 at D=512 and 41 fp32
+    and 512 bf16, on one batch of the gather-mode sampler (bucketed by
+    ``pad_tiled_csr``).  ``segment_ms`` is the port's segment composite on
+    the same batch (K7: the attention forward; K8 and K9: the whole
+    backward of one head, which both together replace)."""
+    from gist_tpu_torch.sampler import ClusterSampler
+    sampler = ClusterSampler(ds, 10, 4, seed=0, tiles=True,
+                             tile_mode="gather")
+    g = sampler.make_batch(next(sampler.iter_node_ids())).graph
+    if g.tiled is None or g.tiled_t is None or g.dedup is not None:
+        raise RuntimeError("expected a v1 layout pair on the batch")
+    _v1_shape("v1_kernels", g)
+    return _v1_kernel_rows(
+        torch, device, g, "v1_kernels",
+        ((602, torch.float32), (256, torch.float32), (256, torch.bfloat16)),
+        ((512, torch.float32), (41, torch.float32), (512, torch.bfloat16)),
+        plain_reps=3)
+
+
+def phase_v1_reference(torch, device, ds, graph):
+    """Two Adam steps (lr 1e-2, weight decay 5e-4) from one seeded
+    initialisation on the full synth-reddit-small v1 graph, through the
+    kernels and through the segment path (GAT h512, 2 heads, 2 layers,
+    through K7-K9; GCN h256, 1 hidden layer, dropout 0, through K3):
+    losses to 1e-4 relative.  GAT's first-step gradients are held to
+    1e-4 max-relative per leaf, except the last layer's ``attn``: a
+    last-bit change (the segment path sums with atomics) puts a score
+    on the leaky ReLU's kink now and then, which moves that leaf by
+    ~1.25e-4 norm-wise run to run in the fp32 segment path itself (see
+    PERF.md), so it is held norm-wise at 5e-4.  GCN's gradients are held
+    to 1e-3 norm-wise per leaf, as its ReLU flips the same way.  Both
+    fp32 paths' errors against the segment path run in float64 are
+    printed beside."""
+    from gist_tpu_torch.models import gat, gcn
+    from gist_tpu_torch.models.common import masked_cross_entropy
+    from gist_tpu_torch.ops import gat_tiled as GT
+    from gist_tpu_torch.ops import tiled_spmm as K3
+    from gist_tpu_torch.train.common import make_optimizer
+
+    x = torch.from_numpy(ds.features).to(device)
+    labels = torch.from_numpy(ds.labels).to(device)
+    mask = torch.from_numpy(ds.train_mask).to(device)
+
+    def run(model, cfg, backend):
+        params = model.init(torch.Generator(device=device).manual_seed(0),
+                            cfg)
+        leaves = [t.requires_grad_(True)
+                  for l in params["layers"] for t in l.values()]
+        opt = make_optimizer(leaves, 1e-2, 5e-4)
+        losses, grads = [], None
+        for _ in range(2):
+            opt.zero_grad(set_to_none=True)
+            loss = masked_cross_entropy(
+                model.apply(params, graph, x, cfg, train=True,
+                            backend=backend), labels, mask)
+            loss.backward()
+            if grads is None:
+                grads = [t.grad.clone() for t in leaves]
+            opt.step()
+            losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        return losses, grads
+
+    def exact_grads(model, cfg):
+        """First-step gradients through the segment path in float64."""
+        params = model.init(torch.Generator(device=device).manual_seed(0),
+                            cfg)
+        leaves = [t.double().requires_grad_(True)
+                  for l in params["layers"] for t in l.values()]
+        it = iter(leaves)
+        p64 = {"layers": [{k: next(it) for k in l}
+                          for l in params["layers"]]}
+        loss = masked_cross_entropy(
+            model.apply(p64, graph, x.double(), cfg, train=True,
+                        backend="segment"), labels, mask)
+        return torch.autograd.grad(loss, leaves)
+
+    def max_rel(a_list, b_list):
+        return [float((a.double() - b).abs().max() / b.abs().max())
+                for a, b in zip(a_list, b_list)]
+
+    checks = (
+        ("gat", gat, gat.GATConfig(ds.in_feats, 512, ds.n_classes,
+                                   n_layers=2, n_heads=2), (6, 6, 6)),
+        ("gcn", gcn, gcn.GCNConfig(ds.in_feats, 256, ds.n_classes,
+                                   n_layers=1, dropout=0.0), (8,)))
+    for name, model, cfg, want_launches in checks:
+        out = {}
+        for backend in ("dedup", "segment"):
+            GT.reset_launches()
+            K3.launches = 0
+            losses, grads = run(model, cfg, backend)
+            counts = ((GT.launches_fwd, GT.launches_b1, GT.launches_b2)
+                      if name == "gat" else (K3.launches,))
+            out[backend] = (losses, grads, counts)
+        (kl, kg, kn), (sl, sg, sn) = out["dedup"], out["segment"]
+        exact = exact_grads(model, cfg)
+        max_err = max_rel(kg, sg)
+        norm_err = [float((a - b).norm() / b.norm()) for a, b in zip(kg, sg)]
+        row = {"phase": "v1_reference", "model": name,
+               "losses_kernels": kl, "losses_segment": sl,
+               "grad_max_rel_err_per_leaf": max_err,
+               "grad_norm_rel_err_per_leaf": norm_err,
+               "grad_max_rel_err_vs_float64": max_rel(kg, exact),
+               "segment_grad_max_rel_err_vs_float64": max_rel(sg, exact),
+               "launches": list(kn), "launches_segment_run": list(sn)}
+        if kn != want_launches or any(sn):
+            raise RuntimeError(f"unexpected launches (want {want_launches} "
+                               f"on the kernel run): {row}")
+        loss_ok = all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(kl, sl))
+        if name == "gat":
+            row["grad_bars"] = ("max-relative 1e-4 on all leaves but the "
+                                "last attn; last attn norm-wise 5e-4 "
+                                "(leaky-ReLU kink flips)")
+            grad_ok = max(max_err[:-1]) <= 1e-4 and norm_err[-1] <= 5e-4
+        else:
+            row["grad_bars"] = "norm-wise 1e-3 per leaf (ReLU flips)"
+            grad_ok = max(norm_err) <= 1e-3
+        emit(row)
+        if not (loss_ok and grad_ok):
+            raise RuntimeError(f"{name} through the v1 kernels disagrees "
+                               f"with the segment path: {row}")
+
+
+def phase_v1_main_path(torch, ds, graph, layout_build_s):
+    """The v1 main path: ``train_full_graph`` on the synth-reddit-small
+    v1 graph, 6 epochs each at lr 1e-2 and weight decay 5e-4, with GAT
+    h512 (2 heads, 2 layers: per epoch 3 K7 launches in training and 3
+    in the eval, 3 K8 and 3 K9) and GCN h256 (1 hidden layer, dropout
+    0.5: per epoch 4 K3 launches forward, 2 on ``tiled_t``).  Returns
+    the launches by kernel."""
+    from gist_tpu_torch.models import gat, gcn
+    from gist_tpu_torch.ops import gat_tiled as GT
+    from gist_tpu_torch.ops import tiled_spmm as K3
+    from gist_tpu_torch.train.common import TrainConfig
+    from gist_tpu_torch.train.full_graph import train_full_graph
+
+    tc = TrainConfig(lr=1e-2, weight_decay=5e-4, n_epochs=6)
+    runs = (("gat", gat, gat.GATConfig(ds.in_feats, 512, ds.n_classes,
+                                       n_layers=2, n_heads=2)),
+            ("gcn", gcn, gcn.GCNConfig(ds.in_feats, 256, ds.n_classes,
+                                       n_layers=1, dropout=0.5)))
+    launches = {}
+    for name, model, cfg in runs:
+        torch.cuda.reset_peak_memory_stats()
+        GT.reset_launches()
+        K3.launches = 0
+        r = train_full_graph(ds, cfg, tc, model=model, graph=graph,
+                             device="cuda", verbose=False)
+        torch.cuda.synchronize()
+        counts = {"K3": K3.launches, "K7": GT.launches_fwd,
+                  "K8": GT.launches_b1, "K9": GT.launches_b2}
+        emit({"phase": "v1_main_path", "model": name, "epochs": tc.n_epochs,
+              "layout_build_s": layout_build_s,
+              "mean_epoch_s": r["mean_epoch_s"], "kteps": r["kteps"],
+              "losses": r["losses"], "val_accs": r["val_accs"],
+              "test_accs": r["test_accs"],
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "launches": counts})
+        e = tc.n_epochs
+        want = ({"K3": 0, "K7": 6 * e, "K8": 3 * e, "K9": 3 * e}
+                if name == "gat" else
+                {"K3": 6 * e, "K7": 0, "K8": 0, "K9": 0})
+        if counts != want:
+            raise RuntimeError(f"{name}: launches {counts}, want {want}")
+        if not all(v == v and abs(v) < float("inf")
+                   for v in r["losses"] + r["val_accs"]):
+            raise RuntimeError(f"{name}: non-finite loss or accuracy")
+        if not r["losses"][-1] < r["losses"][0]:
+            raise RuntimeError(f"{name}: the loss did not fall: "
+                               f"{r['losses']}")
+        launches.update({k: v for k, v in counts.items() if v})
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1022,9 +1368,38 @@ def main():
     t0 = time.time()
     gat_launches = phase_gat_main_path(torch, dataclasses.replace(ds_r))
     emit({"phase": "gat_main_path", "seconds": time.time() - t0})
-    del ds_r, gat_sampler, sampler
+    del gat_sampler, sampler
 
     from gist_tpu_torch.graph import graph_from_edges
+    t0 = time.time()
+    v1_batch_rows = phase_v1_kernels(torch, device,
+                                     dataclasses.replace(ds_r))
+    emit({"phase": "v1_kernels", "seconds": time.time() - t0})
+
+    t0 = time.time()
+    v1_graph = graph_from_edges(ds_r.senders, ds_r.receivers, ds_r.n_nodes,
+                                tiles=True, tile_mode="gather")
+    v1_build_s = time.time() - t0
+    _v1_shape("v1_full_graph", v1_graph)
+    emit({"phase": "v1_full_graph", "graph_build_s": v1_build_s})
+    v1_rows = _v1_kernel_rows(
+        torch, device, v1_graph, "v1_full_graph",
+        ((256, torch.float32), (41, torch.float32)),
+        ((512, torch.float32), (41, torch.float32)), plain_reps=2)
+    emit({"phase": "v1_full_graph", "seconds": time.time() - t0})
+
+    t0 = time.time()
+    v1_graph = v1_graph.to(device)
+    phase_v1_reference(torch, device, ds_r, v1_graph)
+    emit({"phase": "v1_reference", "seconds": time.time() - t0})
+
+    t0 = time.time()
+    v1_launches = phase_v1_main_path(torch, dataclasses.replace(ds_r),
+                                     v1_graph, v1_build_s)
+    emit({"phase": "v1_main_path", "seconds": time.time() - t0})
+    del ds_r, v1_graph
+    torch.cuda.empty_cache()
+
     g_amazon = graph_from_edges(ds.senders, ds.receivers, ds.n_nodes)
     t0 = time.time()
     split_rows, split_pair = phase_split_kernels(torch, device, g_amazon)
@@ -1095,6 +1470,32 @@ def main():
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": None,
             "segment_ms": main_row["segment_ms"]})
+    v1_kernels = (
+        ("K3", "tiled_spmm", "tiled_spmm.cu", "pallas_spmm.py:442",
+         "fwd F=256 float32", "full_graph_gcn"),
+        ("K7", "gat_tiled_fwd", "gat_tiled.cu", "pallas_gat.py:48",
+         "D=512 float32", "full_graph_gat"),
+        ("K8", "gat_tiled_bwd_b1", "gat_tiled.cu", "pallas_gat.py:238",
+         "D=512 float32", "full_graph_gat"),
+        ("K9", "gat_tiled_bwd_b2", "gat_tiled.cu", "pallas_gat.py:286",
+         "D=512 float32", "full_graph_gat"))
+    for key, name, source, replaces, case, path in v1_kernels:
+        main_row = v1_rows[(key, case)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"gist_tpu_torch/csrc/{source}",
+            "replaces": f"gist_tpu/ops/{replaces}",
+            "launches": v1_launches[key],
+            "launches_by_path": {path: v1_launches[key]},
+            "max_abs_err": max(r["max_abs_err"] for (k, tag), r in
+                               [*v1_rows.items(), *v1_batch_rows.items()]
+                               if k == key and tag.endswith("float32")),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row.get("library_ms"),
+            **({"segment_ms": main_row["segment_ms"]}
+               if "segment_ms" in main_row else {})})
     emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.time() - t_all})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

@@ -7,10 +7,11 @@ pass (``gist_tpu/graph.py:617``).  Padding edges carry
 
 The host builders are numpy and produce the same arrays as the JAX
 package for the same inputs; the containers hold CPU tensors that a
-caller moves with ``.to(device)``.  The dedup layouts are ported:
-flat (``DedupTiles``), chunked and split (``ChunkedDedupTiles``).  The
-v1 gather layout (``TiledCSR``) waits for the slice that ports its
-kernels.
+caller moves with ``.to(device)``.  Every layout is ported: the dedup
+layouts, flat (``DedupTiles``), chunked and split
+(``ChunkedDedupTiles``), and the v1 gather layout (``TiledCSR``), which
+``with_tiles`` builds on request (``mode="gather"``) and where a dedup
+build fails, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -33,6 +34,135 @@ CHUNK_ROWS = 4 * 2 ** 20
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class TiledCSR:
+    """The v1 gather layout (``gist_tpu/graph.py:34``): receiver-sorted
+    edges re-laid so that each destination tile's segment starts at a
+    multiple of ``chunk`` slots.  Padding slots carry the sentinel
+    receiver ``num_tiles * tile_rows`` (above every row) and sender 0;
+    slots past ``tile_offsets[-1]`` (``pad_tiled_csr``) are never read.
+    Within a tile the receivers ascend, so each destination row's slots
+    are contiguous.  ``pos_in_other[e]`` is the position of slot e's edge
+    in the other layout of a forward/transpose pair (0 for padding
+    slots).  The 1024-slot padding is a TPU DMA rule, kept so that the
+    arrays stay equal to the JAX package's."""
+
+    senders: torch.Tensor       # (E_t,) int32
+    receivers: torch.Tensor     # (E_t,) int32
+    tile_offsets: torch.Tensor  # (num_tiles + 1,) int32, multiples of chunk
+    tile_rows: int
+    chunk: int
+    max_chunks: int
+    pos_in_other: Optional[torch.Tensor] = None   # (E_t,) int32
+
+    @property
+    def num_tiles(self) -> int:
+        return self.tile_offsets.shape[0] - 1
+
+    def to(self, device) -> "TiledCSR":
+        return dataclasses.replace(
+            self, senders=self.senders.to(device),
+            receivers=self.receivers.to(device),
+            tile_offsets=self.tile_offsets.to(device),
+            pos_in_other=None if self.pos_in_other is None
+            else self.pos_in_other.to(device))
+
+
+def _round_up_arr(x: np.ndarray, m: int) -> np.ndarray:
+    return ((x + m - 1) // m) * m
+
+
+def _build_tiled_csr(senders_sorted: np.ndarray,
+                     receivers_sorted: np.ndarray, indptr: np.ndarray,
+                     n_nodes: int, tile_rows: int = 128, chunk: int = 1024):
+    """Re-lay receiver-sorted edges so that each destination tile's
+    segment starts at a chunk-aligned offset (``gist_tpu/graph.py:62``).
+    Returns the layout and each edge's slot (None without edges)."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    num_tiles = -(-n_nodes // tile_rows)
+    bounds = np.minimum(np.arange(num_tiles + 1) * tile_rows, n_nodes)
+    seg_starts = indptr[bounds[:-1]]
+    seg_counts = indptr[bounds[1:]] - seg_starts
+    padded = np.maximum(_round_up_arr(seg_counts, chunk), 0)
+    offsets = np.zeros(num_tiles + 1, dtype=np.int64)
+    np.cumsum(padded, out=offsets[1:])
+    total = int(offsets[-1])
+
+    s_out = np.zeros(total, dtype=np.int32)
+    r_out = np.full(total, num_tiles * tile_rows, dtype=np.int32)
+    dst = None
+    if len(senders_sorted):
+        tile_of_edge = np.repeat(np.arange(num_tiles), seg_counts)
+        within = np.arange(len(senders_sorted)) - seg_starts[tile_of_edge]
+        dst = offsets[:-1][tile_of_edge] + within
+        s_out[dst] = senders_sorted
+        r_out[dst] = receivers_sorted
+    tiled = TiledCSR(
+        senders=torch.from_numpy(s_out), receivers=torch.from_numpy(r_out),
+        tile_offsets=torch.from_numpy(offsets.astype(np.int32)),
+        tile_rows=tile_rows, chunk=chunk,
+        max_chunks=int(padded.max() // chunk) if num_tiles else 0)
+    return tiled, dst
+
+
+def _link_tiled_pair(fwd: TiledCSR, fwd_dst, t: TiledCSR, t_dst,
+                     t_order: np.ndarray, n_edges: int):
+    """Fill ``pos_in_other`` on a forward/transpose pair
+    (``gist_tpu/graph.py:96``): ``fwd_dst[k]`` is the forward slot of the
+    k-th receiver-sorted edge, ``t_dst[k]`` the transpose slot of the
+    k-th sender-sorted edge, whose receiver-sorted index is
+    ``t_order[k]``."""
+    if n_edges == 0 or fwd_dst is None or t_dst is None:
+        return fwd, t
+    pos_f = np.asarray(fwd_dst, dtype=np.int64)
+    pos_t = np.zeros(n_edges, dtype=np.int64)
+    pos_t[np.asarray(t_order, dtype=np.int64)] = np.asarray(t_dst,
+                                                            dtype=np.int64)
+    f_other = np.zeros(fwd.senders.shape[0], dtype=np.int64)
+    f_other[pos_f] = pos_t
+    t_other = np.zeros(t.senders.shape[0], dtype=np.int64)
+    t_other[pos_t] = pos_f
+    return (dataclasses.replace(
+                fwd, pos_in_other=torch.from_numpy(f_other.astype(np.int32))),
+            dataclasses.replace(
+                t, pos_in_other=torch.from_numpy(t_other.astype(np.int32))))
+
+
+def _build_tiled_pair(g: "Graph", tile_rows: int = 128):
+    """The linked forward/transpose v1 pair of ``g``'s real edges."""
+    e = g.n_edges
+    s, r = g.senders[:e].numpy(), g.receivers[:e].numpy()
+    tiled, f_dst = _build_tiled_csr(s, r, g.indptr.numpy(), g.n_nodes,
+                                    tile_rows=tile_rows)
+    tiled_t, t_dst = _build_tiled_csr(
+        g.t_senders[:e].numpy(), g.t_receivers[:e].numpy(),
+        g.t_indptr.numpy(), g.n_nodes, tile_rows=tile_rows)
+    # s is receiver-sorted; its stable argsort is the sender sort that
+    # built the transpose arrays
+    t_order = np.argsort(s, kind="stable")
+    return _link_tiled_pair(tiled, f_dst, tiled_t, t_dst, t_order, e)
+
+
+def pad_tiled_csr(t: TiledCSR, e_to: int, max_chunks_to: int) -> TiledCSR:
+    """Pad a layout to a bucketed slot count and ``max_chunks``
+    (``gist_tpu/graph.py:122``).  Padding slots carry the sentinel
+    receiver and lie past ``tile_offsets[-1]``."""
+    s, r = t.senders.numpy(), t.receivers.numpy()
+    e_to = max(_round_up(e_to, t.chunk), len(s))
+    extra = e_to - len(s)
+    pio = None if t.pos_in_other is None else t.pos_in_other.numpy()
+    if extra:
+        s = np.concatenate([s, np.zeros(extra, np.int32)])
+        r = np.concatenate([r, np.full(extra, t.num_tiles * t.tile_rows,
+                                       np.int32)])
+        if pio is not None:
+            pio = np.concatenate([pio, np.zeros(extra, np.int32)])
+    return dataclasses.replace(
+        t, senders=torch.from_numpy(s), receivers=torch.from_numpy(r),
+        pos_in_other=None if pio is None else torch.from_numpy(pio),
+        max_chunks=max(t.max_chunks, max_chunks_to))
 
 
 @dataclass(frozen=True)
@@ -472,6 +602,8 @@ class Graph:
     t_indptr: torch.Tensor     # (N+1,) int32 CSR offsets over t_receivers
     n_nodes: int
     n_edges: int
+    tiled: Optional[TiledCSR] = None      # v1 gather layout, forward
+    tiled_t: Optional[TiledCSR] = None    # v1 gather layout, transpose
     dedup: Optional[DedupTiles] = None    # forward dedup layout
     dedup_t: Optional[DedupTiles] = None  # transpose layout (backward)
     # chunked or split layouts, for graphs too large for the flat one
@@ -489,6 +621,7 @@ class Graph:
             out_degrees=self.in_degrees, t_senders=self.senders,
             t_receivers=self.receivers, t_indptr=self.indptr,
             n_nodes=self.n_nodes, n_edges=self.n_edges,
+            tiled=self.tiled_t, tiled_t=self.tiled,
             dedup=self.dedup_t, dedup_t=self.dedup,
             dedup_c=self.dedup_c_t, dedup_c_t=self.dedup_c)
 
@@ -496,7 +629,8 @@ class Graph:
         fields = {f.name: getattr(self, f.name)
                   for f in dataclasses.fields(self)}
         for k, v in fields.items():
-            if isinstance(v, (torch.Tensor, DedupTiles, ChunkedDedupTiles)):
+            if isinstance(v, (torch.Tensor, TiledCSR, DedupTiles,
+                              ChunkedDedupTiles)):
                 fields[k] = v.to(device)
         return Graph(**fields)
 
@@ -507,18 +641,18 @@ class Graph:
     def with_tiles(self, tile_rows: int = 128, mode: str = "dedup",
                    chunk_rows: Optional[int] = None,
                    transpose: bool = True) -> "Graph":
-        """Return a copy carrying the dedup layouts, rebuilt on the host
-        from the edge arrays; a no-op if present
-        (``gist_tpu/graph.py:667``).
+        """Return a copy carrying tile layouts, rebuilt on the host from
+        the edge arrays; a no-op if present (``gist_tpu/graph.py:667``).
 
         ``mode="dedup"`` builds the flat layout pair, or the chunked
         pair above ``HUGE_EDGES`` edges; ``mode="dedup-chunked"`` forces
-        the chunked pair.  ``chunk_rows`` (default ``CHUNK_ROWS``)
-        bounds one chunk's unique-row slots.  ``transpose=False`` skips
-        the chunked transpose layout, for forward-only consumers.  Where
-        the JAX package falls back to the v1 gather layout (or is asked
-        for it with ``mode="gather"``) this raises: that layout is the
-        port's fourth slice."""
+        the chunked pair; ``mode="gather"`` builds the linked v1 pair
+        (``tiled``, ``tiled_t``).  A failed dedup build (W too large, an
+        int8 count overflow) falls through to the v1 pair, as in the JAX
+        package, so a graph may carry a dedup layout and the v1 one.
+        ``chunk_rows`` (default ``CHUNK_ROWS``) bounds one chunk's
+        unique-row slots.  ``transpose=False`` skips the chunked
+        transpose layout, for forward-only consumers."""
         if mode not in ("dedup", "dedup-chunked", "gather"):
             raise ValueError(f"unknown tile mode {mode!r}")
         chunk_rows = CHUNK_ROWS if chunk_rows is None else chunk_rows
@@ -547,9 +681,10 @@ class Graph:
                 t_s, t_r, self.n_nodes, tile_rows=tile_rows)
             if d is not None and d_t is not None:
                 return self.replace(dedup=d, dedup_t=d_t)
-        raise NotImplementedError(
-            "this graph needs the v1 gather layout (TiledCSR), which the "
-            "port's fourth slice brings")
+        if self.tiled is not None:
+            return self
+        tiled, tiled_t = _build_tiled_pair(self, tile_rows)
+        return self.replace(tiled=tiled, tiled_t=tiled_t)
 
     def __repr__(self) -> str:  # pragma: no cover
         return (f"Graph(n_nodes={self.n_nodes}, n_edges={self.n_edges}, "
@@ -558,9 +693,11 @@ class Graph:
 
 def graph_from_edges(senders, receivers, n_nodes: int, *,
                      pad_to: Optional[int] = None,
-                     tiles: bool = False) -> Graph:
+                     tiles: bool = False, tile_rows: int = 128,
+                     tile_mode: str = "dedup") -> Graph:
     """Build a receiver-sorted padded Graph (CPU tensors) from a raw COO
-    edge list; host-side numpy preprocessing."""
+    edge list; host-side numpy preprocessing.  ``tiles=True`` adds the
+    layouts of ``with_tiles(tile_rows, mode=tile_mode)``."""
     senders = np.asarray(senders, dtype=np.int64)
     receivers = np.asarray(receivers, dtype=np.int64)
     if senders.shape != receivers.shape or senders.ndim != 1:
@@ -612,7 +749,7 @@ def graph_from_edges(senders, receivers, n_nodes: int, *,
         n_edges=n_edges,
     )
     if tiles:
-        g = g.with_tiles()
+        g = g.with_tiles(tile_rows=tile_rows, mode=tile_mode)
     return g
 
 

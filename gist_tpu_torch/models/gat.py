@@ -8,14 +8,16 @@ last, and head outputs are averaged.  GAT has no dropout; ``apply``
 takes ``train=`` and ``generator=`` only so that the IST burst drives
 it like the SAGE stack.
 
-The attention runs through K4–K6 (``ops/gat_dedup.py``) when the
-backend resolves to ``dedup`` (a graph on the card with the dedup
-layout pair) and through the segment composite otherwise.  A graph
-that carries the chunked layout (``dedup_c``) takes K4 once per chunk
-on an explicit ``dedup``, as the JAX package's ``pallas`` route does.
-As in the JAX package, all heads share one kernel call when
-``heads * ceil(out / 128) * 128 <= 1024`` and take one call per head
-beyond that.
+The attention runs through the kernels when the backend resolves to
+``dedup`` (a graph on the card with the dedup layout pair or the v1
+layout) and through the segment composite otherwise.  The layouts are
+tried in the JAX package's order (``gist_tpu/models/gat.py:97-144``):
+the chunked layout (``dedup_c``, K4 once per chunk, on an explicit
+``dedup`` only), then the flat pair (K4–K6, ``ops/gat_dedup.py``),
+then the v1 layout (``tiled``: K7 per head forward, K8 and K9 per head
+backward, ``ops/gat_tiled.py``).  On the dedup layouts all heads share
+one kernel call when ``heads * ceil(out / 128) * 128 <= 1024`` and take
+one call per head beyond that; the v1 kernels take one head a call.
 """
 
 from __future__ import annotations
@@ -92,6 +94,12 @@ def _multi_head_layer(graph: Graph, h: torch.Tensor, layer: dict,
             graph, z[:, g], src[:, g], dst[:, g], negative_slope)
             for g in groups], dim=1)
         return out.mean(dim=1)
+    if backend == "dedup" and graph.dedup is None and graph.tiled is not None:
+        from gist_tpu_torch.ops.gat_tiled import gat_attention_tiled
+        outs = [gat_attention_tiled(graph, z[:, hd], src[:, hd], dst[:, hd],
+                                    negative_slope)
+                for hd in range(heads)]
+        return torch.stack(outs).mean(dim=0)
     if backend == "dedup":
         from gist_tpu_torch.ops.gat_dedup import (gat_attention_dedup,
                                                   gat_attention_dedup_mh)

@@ -4,7 +4,8 @@ PyTorch version and its gradient.
 Counterpart of the dedup branches of ``gist_tpu/ops/pallas_spmm.py``
 (``_dedup_kernel``, ``_spmm_dedup_call``, ``_run_dedup``,
 ``_run_dedup_chunked`` and the ``spmm_pallas_csr`` custom VJP, whose
-split-layout branch runs K2 from :mod:`gist_tpu_torch.ops.split_spmm`).
+split-layout branch runs K2 from :mod:`gist_tpu_torch.ops.split_spmm`
+and whose v1 branch runs K3 from :mod:`gist_tpu_torch.ops.tiled_spmm`).
 The kernel source is ``gist_tpu_torch/csrc/dedup_spmm.cu``; it is
 compiled by ``nvcc`` for ``sm_90a`` into ``gist_tpu_torch/_build/`` at
 first use and loaded with ctypes through a plain C interface.
@@ -25,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from gist_tpu_torch.graph import ChunkedDedupTiles, DedupTiles, Graph
+from gist_tpu_torch.graph import ChunkedDedupTiles, DedupTiles, Graph, TiledCSR
 
 TILE_ROWS = 128
 CU = 1024
@@ -203,16 +204,20 @@ def run_dedup_chunked(t: ChunkedDedupTiles, x: torch.Tensor,
 
 
 def run_layout(t, x: torch.Tensor, n_nodes: int) -> torch.Tensor:
-    """Aggregate over a flat, chunked or split layout, dispatching as
-    ``_spmm_forward``/``_spmm_bwd`` do: K1, K1 per chunk, or K2."""
+    """Aggregate over a flat, chunked, split or v1 layout, dispatching as
+    ``_spmm_forward``/``_spmm_bwd`` do: K1, K1 per chunk, K2, or K3."""
     if isinstance(t, DedupTiles):
         return run_dedup(t, x, n_nodes)
+    if isinstance(t, TiledCSR):
+        # here, not at the top: tiled_spmm imports this module
+        from gist_tpu_torch.ops.tiled_spmm import run_tiled
+        return run_tiled(t, x, n_nodes)
     return run_dedup_chunked(t, x, n_nodes)
 
 
 class _DedupSpMM(torch.autograd.Function):
-    """Gradient of the dedup aggregation: dx = A^T g, the same kernel on
-    the transpose layout; the layouts take no gradient."""
+    """Gradient of the kernel aggregation: dx = A^T g, a kernel on the
+    transpose layout; the layouts take no gradient."""
 
     @staticmethod
     def forward(ctx, x, fwd, bwd, n_nodes: int):
@@ -223,19 +228,25 @@ class _DedupSpMM(torch.autograd.Function):
     def backward(ctx, g):
         if ctx.bwd is None:
             raise NotImplementedError(
-                "graph carries no transpose layout (built with "
-                "transpose=False): its aggregation takes no gradient")
+                "graph carries no transpose layout (dedup_t, dedup_c_t or "
+                "tiled_t): its aggregation takes no gradient")
         return run_layout(ctx.bwd, g.contiguous(), ctx.n_nodes), None, None, \
             None
 
 
+def _first(*layouts):
+    return next((t for t in layouts if t is not None), None)
+
+
 def spmm_dedup(graph: Graph, x: torch.Tensor) -> torch.Tensor:
-    """``out[i] = sum_{(s, i)} x[s]`` through K1 (flat or per chunk) or
-    K2 (split layout), differentiable in x.  Forward and backward pick
-    their layouts independently, flat first."""
-    fwd = graph.dedup if graph.dedup is not None else graph.dedup_c
-    bwd = graph.dedup_t if graph.dedup_t is not None else graph.dedup_c_t
+    """``out[i] = sum_{(s, i)} x[s]`` through K1 (flat or per chunk), K2
+    (split layout) or K3 (v1 layout), differentiable in x.  Forward and
+    backward pick their layouts independently in the JAX package's order
+    (``gist_tpu/ops/pallas_spmm.py:582-609``): flat, then chunked, then
+    v1."""
+    fwd = _first(graph.dedup, graph.dedup_c, graph.tiled)
+    bwd = _first(graph.dedup_t, graph.dedup_c_t, graph.tiled_t)
     if fwd is None:
-        raise ValueError("graph carries no dedup layout (build it with "
+        raise ValueError("graph carries no kernel layout (build it with "
                          "tiles=True)")
     return _DedupSpMM.apply(x, fwd, bwd, graph.n_nodes)

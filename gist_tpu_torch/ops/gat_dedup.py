@@ -416,9 +416,11 @@ _GAT_BACKWARD = "fused"
 
 
 def set_gat_backward(mode: str) -> None:
-    """``"fused"`` (default): K5 and K6 per head; ``"xla"``: recompute
-    the attention with the segment composite and differentiate it
-    (exact, the reference)."""
+    """The backward of both attention modules, as the JAX package's one
+    ``_GAT_BACKWARD`` is: ``"fused"`` (default) runs K5 and K6 per head
+    here and K8 and K9 per head in :mod:`gist_tpu_torch.ops.gat_tiled`;
+    ``"xla"`` recomputes the attention with the segment composite and
+    differentiates it (exact, the reference)."""
     global _GAT_BACKWARD
     if mode not in ("fused", "xla"):
         raise ValueError(f"GAT backward must be 'fused' or 'xla', not "

@@ -5,14 +5,16 @@ Two backends, as in ``gist_tpu/ops/spmm.py``:
 * ``segment`` — gather source rows, ``index_add_`` over receivers;
   differentiable through autograd.  The correctness reference, and the
   path of graphs without a layout (the full-graph eval).
-* ``dedup`` — the kernels on the graph's dedup layout: K1 on the flat
-  layout, K1 once per chunk on the chunked layout, K2 on the split
-  layout (:mod:`gist_tpu_torch.ops.dedup_spmm`,
-  :mod:`gist_tpu_torch.ops.split_spmm`); their plain versions on CPU
+* ``dedup`` — the kernel backend, whatever the layout: K1 on the flat
+  dedup layout, K1 once per chunk on the chunked layout, K2 on the split
+  layout, K3 on the v1 gather layout (``tiled``)
+  (:mod:`gist_tpu_torch.ops.dedup_spmm`,
+  :mod:`gist_tpu_torch.ops.split_spmm`,
+  :mod:`gist_tpu_torch.ops.tiled_spmm`); their plain versions on CPU
   tensors.
 
 ``auto`` (the default) selects ``dedup`` for a graph on a CUDA device
-that carries a flat or chunked dedup layout, and ``segment`` otherwise.
+that carries a flat, chunked or v1 layout, and ``segment`` otherwise.
 There is no fallback between the two: a graph sent to ``dedup``
 launches its kernel or raises.
 """
@@ -43,23 +45,25 @@ def resolve_backend(graph: Optional[Graph] = None,
         return backend
     on_card = graph is not None and graph.senders.is_cuda
     has_layout = on_card and (graph.dedup is not None
-                              or graph.dedup_c is not None)
+                              or graph.dedup_c is not None
+                              or graph.tiled is not None)
     return "dedup" if has_layout else "segment"
 
 
 def resolve_gat_backend(graph: Optional[Graph] = None,
                         backend: Optional[str] = None) -> str:
     """Backend of the GAT attention (``gist_tpu/ops/spmm.py:52``):
-    ``auto`` selects ``dedup`` (K4–K6) for a graph on a CUDA device that
-    carries the flat dedup layout pair, and ``segment`` otherwise; the
-    chunked attention is taken only on an explicit ``dedup``, as in the
-    JAX package."""
+    ``auto`` selects ``dedup`` for a graph on a CUDA device that carries
+    the flat dedup layout pair (K4–K6) or the v1 layout (K7–K9), and
+    ``segment`` otherwise; the chunked attention is taken only on an
+    explicit ``dedup``, as in the JAX package."""
     backend = backend or _DEFAULT_BACKEND
     if backend != "auto":
         return backend
     on_card = graph is not None and graph.senders.is_cuda
-    return ("dedup" if on_card and graph.dedup is not None
-            and graph.dedup_t is not None else "segment")
+    has_layout = on_card and (graph.tiled is not None or (
+        graph.dedup is not None and graph.dedup_t is not None))
+    return "dedup" if has_layout else "segment"
 
 
 def tiles_wanted() -> bool:

@@ -3,7 +3,7 @@
 Batches are the node-induced subgraphs of ``batch_size`` random
 clusters, padded to geometric size buckets as in the JAX package, so
 the two packages draw identical node-id streams and build identical
-batches and dedup layouts from one seed (the RNG is numpy).  Batches are
+batches and layouts from one seed (the RNG is numpy).  Batches are
 built on the host as CPU tensors; trainers move them to their device.
 """
 
@@ -63,10 +63,12 @@ class ClusterBatch:
 
 
 def unify_tile_buckets(batches: List[ClusterBatch]) -> List[ClusterBatch]:
-    """Re-pad per-batch dedup layouts to one common job bucket (the dedup
-    part of ``gist_tpu/sampler.py:unify_tile_buckets``).  Batches whose
-    layout build bailed force layouts off for the whole round, so every
-    batch of a round takes the same aggregation path."""
+    """Re-pad per-batch layouts to one common bucket
+    (``gist_tpu/sampler.py:unify_tile_buckets``): the v1 pairs first,
+    then the dedup pairs.  Batches whose layout build bailed force that
+    layout off for the whole round, so every batch of a round takes the
+    same aggregation path."""
+    batches = _unify_gather_tiles(batches)
     graphs = [b.graph for b in batches]
     have = [g.dedup is not None and g.dedup_t is not None for g in graphs]
     if not all(have):
@@ -98,6 +100,41 @@ def unify_tile_buckets(batches: List[ClusterBatch]) -> List[ClusterBatch]:
     return out
 
 
+def _unify_gather_tiles(batches: List[ClusterBatch]) -> List[ClusterBatch]:
+    """The v1 counterpart of the dedup unification
+    (``gist_tpu/sampler.py:108``): one slot count and ``max_chunks`` per
+    direction for the round."""
+    graphs = [b.graph for b in batches]
+    have = [g.tiled is not None and g.tiled_t is not None for g in graphs]
+    if not all(have):
+        if any(g.tiled is not None or g.tiled_t is not None
+               for g in graphs):
+            batches = [
+                b.replace(graph=b.graph.replace(tiled=None, tiled_t=None))
+                for b in batches]
+        return batches
+    from gist_tpu_torch.graph import pad_tiled_csr
+
+    def pads(ts):
+        return (max(t.senders.shape[0] for t in ts),
+                max(t.max_chunks for t in ts))
+
+    eb, mc = pads([g.tiled for g in graphs])
+    ebt, mct = pads([g.tiled_t for g in graphs])
+    out = []
+    for b in batches:
+        g = b.graph
+        if (g.tiled.senders.shape[0] == eb and g.tiled.max_chunks == mc
+                and g.tiled_t.senders.shape[0] == ebt
+                and g.tiled_t.max_chunks == mct):
+            out.append(b)
+            continue
+        out.append(b.replace(graph=g.replace(
+            tiled=pad_tiled_csr(g.tiled, eb, mc),
+            tiled_t=pad_tiled_csr(g.tiled_t, ebt, mct))))
+    return out
+
+
 class ClusterSampler:
     """Iterates ``psize // batch_size`` padded cluster batches per epoch,
     reshuffling the cluster order between epochs."""
@@ -111,15 +148,22 @@ class ClusterSampler:
         cache_dir: Optional[str] = None,
         seed: int = 0,
         tiles: Optional[bool] = None,
+        tile_mode: str = "dedup",
     ):
-        """``tiles=None`` (auto): build the dedup layout on each batch
-        when a dedup-capable backend is active (``tiles_wanted``) and the
-        batch has at least ``TILES_MIN_EDGES`` edges; layout shapes are
-        padded to the same geometric buckets as nodes/edges."""
+        """``tiles=None`` (auto): build a layout on each batch when a
+        kernel backend is active (``tiles_wanted``) and the batch has at
+        least ``TILES_MIN_EDGES`` edges; layout shapes are padded to the
+        same geometric buckets as nodes/edges.  ``tile_mode`` picks the
+        layout: ``"dedup"`` the block-dense pair, ``"gather"`` the
+        linked v1 pair (``TiledCSR``)."""
+        if tile_mode not in ("dedup", "gather"):
+            raise ValueError(f"tile_mode must be 'dedup' or 'gather', not "
+                             f"{tile_mode!r}")
         self.psize = psize
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
         self.tiles = tiles
+        self.tile_mode = tile_mode
 
         # restrict to the train-node-induced subgraph
         train_nid = np.nonzero(ds.train_mask)[0]
@@ -173,11 +217,19 @@ class ClusterSampler:
         return self._map_local[src_global[keep]], dst_local[keep]
 
     def _with_bucketed_tiles(self, g: Graph) -> Graph:
-        """Dedup layouts with job counts padded to geometric buckets
+        """Layouts with job or slot counts padded to geometric buckets
         (cluster batch nodes are already cluster-grouped, so no extra
         locality reorder)."""
-        from gist_tpu_torch.graph import _build_dedup_tiles, pad_dedup_tiles
         gr = BUCKET_GROWTH
+        if self.tile_mode == "gather":
+            from gist_tpu_torch.graph import _build_tiled_pair, pad_tiled_csr
+            tiled, tiled_t = _build_tiled_pair(g)
+            tiled, tiled_t = (
+                pad_tiled_csr(t, bucket_size(t.senders.shape[0], gr, 1024),
+                              bucket_size(max(t.max_chunks, 1), gr, 1))
+                for t in (tiled, tiled_t))
+            return g.replace(tiled=tiled, tiled_t=tiled_t)
+        from gist_tpu_torch.graph import _build_dedup_tiles, pad_dedup_tiles
         e = g.n_edges
         s, r = g.senders[:e].numpy(), g.receivers[:e].numpy()
         t_s, t_r = g.t_senders[:e].numpy(), g.t_receivers[:e].numpy()

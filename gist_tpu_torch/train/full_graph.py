@@ -1,12 +1,17 @@
-"""Full-graph GCN training (``gist_tpu/train/full_graph.py``), the
+"""Full-graph training (``gist_tpu/train/full_graph.py``), the
 per-epoch loop: one optimizer step on the whole graph per epoch, then an
 eval of the validation and test accuracies.  Wall-clock accounting is
 the JAX package's: the first 3 epochs are warm-up and the eval is
 outside the epoch time; KTEPS = edges / mean epoch seconds / 1000.
 
-Above ``graph.HUGE_EDGES`` edges the graph carries the chunked dedup
-layout pair, so every aggregation runs K1 once per chunk, forward and
-backward.  The epoch-scanned variant (``scan_epochs``) is not ported.
+``model`` is GCN by default and may be any model module of the port
+with ``init(generator, cfg)`` and ``apply(params, graph, x, cfg,
+train=, generator=)``, GAT among them.  The graph's layouts pick the
+kernels: above ``graph.HUGE_EDGES`` edges ``prepare_graph`` builds the
+chunked dedup pair (K1 once per chunk); a graph passed in with the v1
+layout (``graph_from_edges(..., tiles=True, tile_mode="gather")``) runs
+K3 for GCN and K7–K9 for GAT.  The epoch-scanned variant
+(``scan_epochs``) is not ported.
 """
 
 from __future__ import annotations

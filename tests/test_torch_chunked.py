@@ -12,7 +12,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 import gist_tpu.graph as JG
 from conftest import make_random_graph
@@ -24,7 +23,7 @@ from gist_tpu_torch.data import load_dataset
 from gist_tpu_torch.ops import dedup_spmm as K
 from gist_tpu_torch.ops import split_spmm as K2
 from gist_tpu_torch.ops import spmm as TS
-from torch_port_helpers import load_jax_partitioner
+from torch_port_helpers import load_jax_partitioner, run_interpret
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -140,8 +139,9 @@ def test_with_tiles_above_lowered_threshold(rng, monkeypatch):
     monkeypatch.setattr(TG, "HUGE_EDGES", 10 ** 9)
     flat = TG.graph_from_edges(s, r, 400, tiles=True)
     assert flat.dedup is not None and flat.dedup_c is None
-    with pytest.raises(NotImplementedError):
-        flat.with_tiles(mode="gather")
+    both = flat.with_tiles(mode="gather")    # the v1 pair beside the flat one
+    assert both.dedup is flat.dedup and both.tiled is not None
+    assert both.tiled_t.pos_in_other is not None
     with pytest.raises(ValueError):
         flat.with_tiles(mode="tiled")
 
@@ -165,17 +165,6 @@ def test_load_dataset_self_loop_equal():
     assert loops.sum() == b.n_nodes
     np.testing.assert_array_equal(np.sort(b.senders[loops]),
                                   np.arange(b.n_nodes))
-
-
-def run_interpret(fn):
-    """Run ``fn`` with the Pallas kernels in interpret mode and wait for
-    all its work, callbacks included, before any torch computation: one
-    started while the interpreter still ran was seen to read corrupted
-    values."""
-    with pltpu.force_tpu_interpret_mode():
-        out = jax.block_until_ready(fn())
-    jax.effects_barrier()
-    return jax.tree.map(np.asarray, out)
 
 
 def _jax_spmm_and_grad(gj, x, w):

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
-K1 (the dedup SpMM) and K4–K6 (the dedup GAT attention and its fused
-backward).  CUDA kernels have no CPU mode, so every test here skips
-without a card.  On a machine with one (and without JAX), run:
+K1 (the dedup SpMM), K2 (the split SpMM), K3 (the v1 SpMM), K4–K6 (the
+dedup GAT attention and its fused backward) and K7–K9 (the v1 GAT
+attention and its fused backward).  CUDA kernels have no CPU mode, so
+every test here skips without a card.  On a machine with one (and
+without JAX), run:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -381,3 +383,174 @@ def test_split_kernel_raises_instead_of_falling_back(cuda):
                t.w_blocks[0], t.u_senders[0])
         with pytest.raises(ValueError if tn == 32 else TypeError):
             K2.split_spmm(*lay, x.to(dtype))
+
+
+# --- K3, K7-K9: the v1 gather layout ----------------------------------------
+
+
+def _v1_graph(case, rng):
+    """A graph with the linked v1 pair, each layout padded past
+    ``tile_offsets[-1]`` (as ``pad_tiled_csr`` buckets them)."""
+    from gist_tpu_torch.graph import pad_tiled_csr
+    s, r, n = _edges(case, rng)
+    # a hub row whose slots span more than two 1024-slot chunks
+    s = np.concatenate([s, rng.integers(0, n, 2500)])
+    r = np.concatenate([r, np.full(2500, 3)])
+    g = graph_from_edges(s, r, n, tiles=True, tile_mode="gather")
+    return g.replace(**{k: pad_tiled_csr(getattr(g, k),
+                                         getattr(g, k).senders.shape[0] + 2048,
+                                         getattr(g, k).max_chunks + 2)
+                        for k in ("tiled", "tiled_t")}), n
+
+
+V1_CASES = ["several_tiles", "empty_tiles", "multigraph"]
+
+
+@pytest.mark.parametrize("case", V1_CASES)
+@pytest.mark.parametrize("dtype,f", [(torch.float32, 41),
+                                     (torch.float32, 256),
+                                     (torch.float32, 602),
+                                     (torch.bfloat16, 256)])
+def test_tiled_spmm_matches_plain(cuda, case, dtype, f):
+    """K3 forward (``tiled``) and transpose (``tiled_t``) against its
+    plain walk: 1e-5 relative to the plain result's max in fp32, 1e-2 in
+    bf16; in fp32 also against the dense product."""
+    from gist_tpu_torch.ops import tiled_spmm as K3
+    rng = np.random.default_rng(0)
+    g, n = _v1_graph(case, rng)
+    gc = g.to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32))
+    x = x.to(dtype).to(cuda)
+    for t, (snd, rcv) in ((gc.tiled, (g.senders, g.receivers)),
+                          (gc.tiled_t, (g.receivers, g.senders))):
+        before = K3.launches
+        got = K3.tiled_spmm(t, x)
+        torch.cuda.synchronize()
+        assert K3.launches == before + 1
+        want = K3.tiled_spmm_reference(t, x)
+        assert got.dtype == dtype and got.shape == want.shape
+        err = _rel(got, want)
+        assert err <= (1e-5 if dtype == torch.float32 else 1e-2), err
+        if dtype == torch.float32:
+            e = g.n_edges
+            oracle = _dense(snd[:e].numpy(), rcv[:e].numpy(), n) @ \
+                x.double().cpu().numpy()
+            # the hub row sums 2500 terms in fp32: hold it relative to
+            # the output's max, as against the plain walk
+            assert _rel(got[:n].cpu().double(),
+                        torch.from_numpy(oracle)) <= 1e-5
+        if case == "empty_tiles" and t is gc.tiled:
+            assert torch.all(got[100:] == 0)
+
+
+def test_tiled_aggregate_grad_and_missing_transpose(cuda):
+    """``aggregate`` on a v1 graph on the card: K3 forward and on
+    ``tiled_t`` backward, against the segment path; without ``tiled_t``
+    the backward raises."""
+    from gist_tpu_torch.ops import tiled_spmm as K3
+    from gist_tpu_torch.ops.spmm import resolve_backend
+    rng = np.random.default_rng(1)
+    s, r, n = _edges("several_tiles", rng)
+    g = graph_from_edges(s, r, n, tiles=True, tile_mode="gather").to(cuda)
+    assert resolve_backend(g) == "dedup" and g.dedup is None
+    x0 = torch.from_numpy(rng.standard_normal((n, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((n, 64)).astype(np.float32))
+    w = w.to(cuda)
+    x = x0.to(cuda).requires_grad_(True)
+    before = K3.launches
+    out = aggregate(g, x)
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    assert K3.launches == before + 2
+    xs = x0.to(cuda).requires_grad_(True)
+    want = spmm_segment(g, xs)
+    (want * w).sum().backward()
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(x.grad, xs.grad, rtol=1e-5, atol=1e-4)
+    fwd_only = g.replace(tiled_t=None)
+    with pytest.raises(NotImplementedError):
+        aggregate(fwd_only, x0.to(cuda).requires_grad_(True)).sum() \
+            .backward()
+    with pytest.raises(TypeError):
+        aggregate(g, x0.to(cuda).double())
+
+
+@pytest.mark.parametrize("case", V1_CASES)
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 41),
+                                     (torch.float32, 512),
+                                     (torch.bfloat16, 512)])
+def test_gat_tiled_kernels_match_plain(cuda, case, dtype, d):
+    """K7, then K8 and K9 on the forward's m and l, each against its
+    plain walk on the same inputs: 1e-5 relative to the plain result's
+    max in fp32 (every kernel sums each row in order, no atomics), 1e-2
+    in bf16; empty rows give out 0, m -1e30, l 0."""
+    from gist_tpu_torch.ops import gat_tiled as GT
+    rng = np.random.default_rng(0)
+    g, n = _v1_graph(case, rng)
+    gc = g.to(cuda)
+
+    def t(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    z, src, dst, gg = t(n, d).to(dtype), t(n), t(n), t(n, d)
+    before = (GT.launches_fwd, GT.launches_b1, GT.launches_b2)
+    out, m, l = GT.gat_tiled_fwd(gc.tiled, z, src, dst, 0.2)
+    torch.cuda.synchronize()
+    want = GT.gat_tiled_fwd_reference(gc.tiled, z, src, dst, 0.2)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    assert _rel(out, want[0]) <= tol
+    assert torch.equal(m, want[1]) or _rel(m, want[1]) <= 1e-6
+    assert _rel(l, want[2]) <= 1e-5
+    empty = torch.from_numpy(np.bincount(
+        g.receivers[:g.n_edges].numpy(), minlength=l.shape[0]) == 0).to(cuda)
+    assert torch.all(l[empty] == 0) and torch.all(m[empty] == -1e30)
+    assert torch.all(out[empty] == 0)
+    ds, ddst = GT.gat_tiled_bwd_b1(gc.tiled, z, src, dst, m, l, gg, 0.2)
+    torch.cuda.synchronize()
+    ds_w, ddst_w = GT.gat_tiled_bwd_b1_reference(gc.tiled, z, src, dst, m, l,
+                                                 gg, 0.2)
+    assert _rel(ds, ds_w) <= tol and _rel(ddst, ddst_w) <= tol
+    dz, dsrc = GT.gat_tiled_bwd_b2(gc.tiled_t, ds, gg, src, dst, m, l, 0.2,
+                                   dtype)
+    torch.cuda.synchronize()
+    dz_w, dsrc_w = GT.gat_tiled_bwd_b2_reference(gc.tiled_t, ds, gg, src,
+                                                 dst, m, l, 0.2, dtype)
+    assert dz.dtype == dtype
+    assert _rel(dz, dz_w) <= tol and _rel(dsrc, dsrc_w) <= tol
+    assert (GT.launches_fwd, GT.launches_b1, GT.launches_b2) == tuple(
+        x + 1 for x in before)
+
+
+def test_gat_tiled_attention_grad_on_card(cuda):
+    """The autograd path on a v1 graph: one K7 launch forward, one K8 and
+    one K9 backward, against the segment composite."""
+    from gist_tpu_torch.ops import gat_tiled as GT
+    from gist_tpu_torch.ops.segment import gat_attention_segment
+    rng = np.random.default_rng(3)
+    s, r, n = _edges("several_tiles", rng)
+    g = graph_from_edges(s, r, n, tiles=True, tile_mode="gather").to(cuda)
+
+    def leaves():
+        gen = np.random.default_rng(4)
+        return [torch.from_numpy(gen.standard_normal(shape).astype(
+            np.float32)).to(cuda).requires_grad_(True)
+            for shape in ((n, 24), (n,), (n,))]
+    w = torch.from_numpy(rng.standard_normal((n, 24)).astype(
+        np.float32)).to(cuda)
+    before = (GT.launches_fwd, GT.launches_b1, GT.launches_b2)
+    kl = leaves()
+    out = GT.gat_attention_tiled(g, *kl, 0.01)
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    assert (GT.launches_fwd - before[0], GT.launches_b1 - before[1],
+            GT.launches_b2 - before[2]) == (1, 1, 1)
+    sl = leaves()
+    ref = gat_attention_segment(g, *sl, 0.01)
+    (ref * w).sum().backward()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    for a, b in zip(kl, sl):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4)
+    with pytest.raises(TypeError):
+        GT.gat_tiled_fwd(g.tiled, kl[0].detach().double(), kl[1].detach(),
+                         kl[2].detach(), 0.01)

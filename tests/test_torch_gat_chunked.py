@@ -12,7 +12,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 import gist_tpu.graph as JG
 from conftest import make_random_graph
@@ -25,7 +24,7 @@ from gist_tpu_torch.convert import params_from_jax
 from gist_tpu_torch.models import gat as tgat
 from gist_tpu_torch.ops import gat_dedup as K
 from gist_tpu_torch.ops import spmm as TS
-from torch_port_helpers import load_jax_partitioner
+from torch_port_helpers import load_jax_partitioner, run_interpret
 
 SLOPE = 0.01
 EXACT = dict(rtol=1e-4, atol=1e-5)
@@ -54,16 +53,6 @@ def _inputs(rng, n, heads, d):
 
 def _j(*arrays):
     return [jnp.array(a, copy=True) for a in arrays]
-
-
-def run_interpret(fn):
-    """Run ``fn`` with the Pallas kernels in interpret mode and wait for
-    all its work, callbacks included: a torch computation started while
-    the interpreter still ran was seen to read corrupted values."""
-    with pltpu.force_tpu_interpret_mode():
-        out = jax.block_until_ready(fn())
-    jax.effects_barrier()
-    return jax.tree.map(np.asarray, out)
 
 
 def test_chunked_attention_forward(rng):

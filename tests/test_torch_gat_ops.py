@@ -23,7 +23,7 @@ from gist_tpu.ops import segment as JS
 import gist_tpu_torch.graph as TG
 from gist_tpu_torch.ops import gat_dedup as K
 from gist_tpu_torch.ops import segment as TS
-from torch_port_helpers import load_jax_partitioner
+from torch_port_helpers import load_jax_partitioner, run_interpret
 
 SLOPE = 0.01
 EXACT = dict(rtol=1e-4, atol=1e-5)
@@ -32,12 +32,6 @@ EXACT = dict(rtol=1e-4, atol=1e-5)
 @pytest.fixture(autouse=True, scope="module")
 def _jax_partitioner():
     load_jax_partitioner()
-
-
-def run_interpret(fn):
-    from jax.experimental.pallas import tpu as pltpu
-    with pltpu.force_tpu_interpret_mode():
-        return fn()
 
 
 def _edges(case, rng):

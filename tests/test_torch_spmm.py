@@ -11,7 +11,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 import gist_tpu.graph as JG
 from gist_tpu.ops import pallas_spmm
@@ -20,7 +19,7 @@ from gist_tpu.ops.spmm import spmm_segment as jax_segment
 import gist_tpu_torch.graph as TG
 from gist_tpu_torch.ops import dedup_spmm as K
 from gist_tpu_torch.ops import spmm as TS
-from torch_port_helpers import load_jax_partitioner
+from torch_port_helpers import load_jax_partitioner, run_interpret
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -101,10 +100,10 @@ def test_dedup_plain_matches_pallas_and_segment(rng, case):
     x = rng.standard_normal((n, f)).astype(np.float32)
     w = rng.standard_normal((n, f)).astype(np.float32)
 
-    with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(pallas_spmm.spmm_pallas_csr(gj, jnp.asarray(x)))
-        want_dx = np.asarray(jax.grad(lambda v: jnp.sum(
-            pallas_spmm.spmm_pallas_csr(gj, v) * w))(jnp.asarray(x)))
+    want, want_dx = run_interpret(lambda: (
+        pallas_spmm.spmm_pallas_csr(gj, jnp.asarray(x)),
+        jax.grad(lambda v: jnp.sum(
+            pallas_spmm.spmm_pallas_csr(gj, v) * w))(jnp.asarray(x))))
     seg = np.asarray(jax_segment(gj, jnp.asarray(x)))
 
     xt = torch.from_numpy(x).requires_grad_(True)
