@@ -37,7 +37,8 @@ raising on failure:
     synth-reddit (46.8M edges with self loops) through the chunked
     layouts, counting K1 launches (4 C_f + 2 C_t per epoch); then K1 per
     chunk on those layouts, forward and transpose at F=256 and F=41,
-    against its plain version and the segment aggregation;
+    against its plain version and the segment aggregation, with times
+    beside one ``torch.sparse.mm``;
 13. chunked GAT: a full-graph GAT h512 (2 heads, 2 layers) forward on
     the same graph's chunked layout through K4 once per chunk and layer,
     against the segment path;
@@ -92,15 +93,16 @@ def phase_build():
     t0 = time.time()
     procs = []
     for mod in modules:
-        tmp = f"{mod.LIBRARY}.{os.getpid()}.tmp"
-        procs.append((mod, tmp, subprocess.Popen(
-            mod.build_command(tmp), stdout=subprocess.PIPE,
+        lib = dedup_spmm.library_path(mod.SOURCE)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        procs.append((mod, lib, tmp, subprocess.Popen(
+            dedup_spmm.build_command(tmp, mod.SOURCE), stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)))
-    for mod, tmp, p in procs:
+    for mod, lib, tmp, p in procs:
         _, err = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {mod.SOURCE}:\n{err}")
-        os.replace(tmp, mod.LIBRARY)
+        os.replace(tmp, lib)
         regs = [ln.strip() for ln in err.splitlines() if "registers" in ln]
         emit({"phase": "build", "source": os.path.relpath(mod.SOURCE, HERE),
               "ptxas": regs})
@@ -146,11 +148,22 @@ def _k1_bound(torch, layout, x, n_out_rows):
     return _bound(nbytes, flops, x.dtype) + (nbytes, flops)
 
 
+def _grid(job_offsets, f, tile_rows):
+    """Launch grid (feature slices, blocks per tile, tiles) and largest
+    jobs per tile of K1 or K2 over ``job_offsets`` ((tiles + 1,) or one
+    row per chunk): a hub tile sets a tail."""
+    from gist_tpu_torch.ops.dedup_spmm import launch_grid
+    per_tile = job_offsets[..., 1:] - job_offsets[..., :-1]
+    return {"grid": list(launch_grid(per_tile.shape[-1], f, tile_rows)),
+            "launches_per_pass": per_tile.numel() // per_tile.shape[-1],
+            "max_jobs_per_tile": int(per_tile.max())}
+
+
 def _csr_adjacency(torch, graph, dtype, device, transpose):
     """A[r, s] = count of edge s->r (rows in kernel output order, which
     is node order for the sampler's unreordered layouts)."""
     e = graph.n_edges
-    s, r = graph.senders[:e].long(), graph.receivers[:e].long()
+    s, r = graph.senders[:e].long().cpu(), graph.receivers[:e].long().cpu()
     if transpose:
         s, r = r, s
     n = graph.n_nodes
@@ -209,14 +222,16 @@ def phase_kernels(torch, device, sampler):
                 library_ms, lib_note = None, str(e).splitlines()[0]
             else:
                 lib_note = "torch.sparse.mm on a CSR adjacency"
+            ms = _median_ms(torch, kernel, reps=20)
             row = {"phase": "kernels", "case": f"{direction} F={f} "
                    f"{str(dtype).split('.')[-1]}",
                    "max_abs_err": abs_err, "rel_err": rel_err, "tol": tol,
-                   "ms": _median_ms(torch, kernel, reps=20),
-                   "plain_ms": _median_ms(torch, plain, reps=3),
+                   "ms": ms, "plain_ms": _median_ms(torch, plain, reps=3),
                    "library_ms": library_ms, "library": lib_note,
+                   "ms_over_library": library_ms and ms / library_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "bound_bytes": nbytes, "useful_flops": flops}
+                   "bound_bytes": nbytes, "useful_flops": flops,
+                   **_grid(lay.job_offsets, f, lay.tile_rows)}
             emit(row)
             if not rel_err <= tol:
                 raise RuntimeError(f"K1 disagrees with its plain version: "
@@ -711,18 +726,21 @@ def phase_split_kernels(torch, device, g):
                 if dtype == torch.float32:
                     library_ms = _median_ms(
                         torch, lambda: torch.sparse.mm(adj, x), reps=10)
+                ms = _median_ms(torch, kernel, reps=10)
                 row = {"phase": "split_kernels",
                        "case": f"{direction} CU={cu} F={f} "
                                f"{str(dtype).split('.')[-1]}",
                        "max_abs_err": abs_err, "rel_err": rel_err,
-                       "tol": tol, "ms": _median_ms(torch, kernel, reps=10),
+                       "tol": tol, "ms": ms,
                        "plain_ms": _median_ms(torch, plain, reps=2,
                                               warmup=1),
                        "library_ms": library_ms,
                        "library": "torch.sparse.mm on a CSR adjacency "
                                   "(fp32 only)",
+                       "ms_over_library": library_ms and ms / library_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
-                       "bound_bytes": nbytes, "useful_flops": flops}
+                       "bound_bytes": nbytes, "useful_flops": flops,
+                       **_grid(t.job_offsets, f, t.tile_rows)}
                 emit(row)
                 if not rel_err <= tol:
                     raise RuntimeError(f"K2 disagrees with its plain "
@@ -874,7 +892,9 @@ def _check_chunked_k1(torch, device, graph):
     max|plain|) and against the segment aggregation of the same graph,
     which knows nothing of the layout's perm and pos (1e-5 relative to
     max|segment|).  The bound counts the features once and the
-    kernel-order output once."""
+    kernel-order output once; ``library_ms`` is one ``torch.sparse.mm``
+    on the node-order CSR adjacency, the whole pass's yardstick (the
+    runner's permutation of x and of the rows included)."""
     import numpy as np
 
     from gist_tpu_torch.ops import dedup_spmm as K
@@ -887,6 +907,8 @@ def _check_chunked_k1(torch, device, graph):
         t = g.dedup_c
         lay_bytes, nnz = _chunked_bytes_nnz(torch, t)
         out_rows = t.n_chunks * t.tiles_per_chunk * t.tile_rows
+        adj = _csr_adjacency(torch, graph, torch.float32, device,
+                             transpose=direction == "bwd")
         for f in (256, 41):
             x = torch.from_numpy(rng.standard_normal(
                 (n, f)).astype(np.float32)).to(device)
@@ -900,24 +922,34 @@ def _check_chunked_k1(torch, device, graph):
             abs_err = float((got - want).abs().max())
             rel_err = abs_err / float(want.abs().max())
             seg_err = float((got - seg).abs().max() / seg.abs().max())
+            lib_err = float((got - torch.sparse.mm(adj, x)).abs().max()
+                            / seg.abs().max())
             bound_ms, bound_by = _bound(
                 lay_bytes + (n + out_rows) * f * 4, 2 * nnz * f,
                 torch.float32)
+            ms = _median_ms(torch, lambda: K.run_dedup_chunked(t, x, n),
+                            reps=5)
+            library_ms = _median_ms(torch, lambda: torch.sparse.mm(adj, x),
+                                    reps=5)
             row = {"phase": "full_path",
                    "case": f"run_dedup_chunked {direction} F={f} float32",
                    "n_chunks": t.n_chunks, "max_abs_err": abs_err,
                    "rel_err": rel_err, "segment_rel_err": seg_err,
-                   "tol": 1e-5, "ms": _median_ms(
-                       torch, lambda: K.run_dedup_chunked(t, x, n), reps=5),
+                   "library_rel_err": lib_err, "tol": 1e-5, "ms": ms,
                    "plain_ms": plain_ms, "segment_ms": segment_ms,
+                   "library_ms": library_ms,
+                   "library": "torch.sparse.mm on a CSR adjacency",
+                   "ms_over_library": ms / library_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "w_nonzero": nnz}
+                   "w_nonzero": nnz,
+                   **_grid(t.job_offsets, f, t.tile_rows)}
             emit(row)
             if not (rel_err <= 1e-5 and seg_err <= 1e-5):
                 raise RuntimeError(f"chunked K1 disagrees with its plain "
                                    f"version or the segment path: {row}")
             rows[row["case"]] = row
             del x, got, want, seg
+        del adj
     return rows
 
 
@@ -1423,6 +1455,7 @@ def main():
     emit({"phase": "gat_chunked", "seconds": time.time() - t0})
 
     main_case = cases["fwd F=256 float32"]
+    full_case = chunked_rows["run_dedup_chunked fwd F=256 float32"]
     kernels = [{
         "name": "dedup_spmm", "route": "cuda",
         "source": "gist_tpu_torch/csrc/dedup_spmm.cu",
@@ -1436,7 +1469,9 @@ def main():
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]
+        "library_ms": main_case["library_ms"],
+        "full_scale_pass": {k: full_case[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}]
     gat_kernels = (("K4", "gat_fwd", "gist_tpu/ops/pallas_gat.py:546"),
                    ("K5", "gat_bwd_b1", "gist_tpu/ops/pallas_gat.py:1015"),
                    ("K6", "gat_bwd_b2", "gist_tpu/ops/pallas_gat.py:1070"))

@@ -6,9 +6,13 @@ Counterpart of the dedup branches of ``gist_tpu/ops/pallas_spmm.py``
 ``_run_dedup_chunked`` and the ``spmm_pallas_csr`` custom VJP, whose
 split-layout branch runs K2 from :mod:`gist_tpu_torch.ops.split_spmm`
 and whose v1 branch runs K3 from :mod:`gist_tpu_torch.ops.tiled_spmm`).
-The kernel source is ``gist_tpu_torch/csrc/dedup_spmm.cu``; it is
-compiled by ``nvcc`` for ``sm_90a`` into ``gist_tpu_torch/_build/`` at
-first use and loaded with ctypes through a plain C interface.
+The kernel source is ``gist_tpu_torch/csrc/dedup_spmm.cu`` (its walk
+over the count blocks in ``csrc/count_block.cuh``, shared with K2); it
+is compiled by ``nvcc`` for ``sm_90a`` into ``gist_tpu_torch/_build/``
+at first use and loaded with ctypes through a plain C interface.  Each
+kernel library is named by the content of the files it is compiled from
+(:func:`library_path`), so an edited source is never served by an old
+build.
 
 :func:`dedup_spmm` launches the kernel for a CUDA tensor and runs
 :func:`dedup_spmm_reference` (the same tile and job walk in plain
@@ -19,7 +23,9 @@ PyTorch) for a CPU tensor; it never falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Optional
@@ -30,17 +36,58 @@ from gist_tpu_torch.graph import ChunkedDedupTiles, DedupTiles, Graph, TiledCSR
 
 TILE_ROWS = 128
 CU = 1024
+# K1's and K2's launch shape (count_block::FT, count_block::WARPS): one
+# warp per destination row, ROWS_PER_BLOCK rows a block, and
+# ceil(F / FEATURE_TILE) column slices of each
+FEATURE_TILE = 256
+ROWS_PER_BLOCK = 8
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "dedup_spmm.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
-LIBRARY = os.path.join(BUILD_DIR, "libdedup_spmm.so")
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(source: str) -> list:
+    """``source`` and every header it includes by a quoted path from its
+    directory, recursively, each once."""
+    seen, todo = [], [os.path.abspath(source)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, encoding="utf-8") as fh:
+            todo += [os.path.join(os.path.dirname(path), name)
+                     for name in _INCLUDE.findall(fh.read())]
+    return seen
+
+
+def library_path(source: str) -> str:
+    """The library built from ``source``: ``lib<stem>-<key>.so`` in
+    ``BUILD_DIR``, where the key is the SHA-1 of the source and of every
+    header it includes, so that an edit to either names a new library."""
+    digest = hashlib.sha1()
+    for path in _sources(source):
+        with open(path, "rb") as fh:
+            digest.update(os.path.basename(path).encode() + b"\0"
+                          + fh.read() + b"\0")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
+
+
+def launch_grid(num_tiles: int, f: int, tile_rows: int = TILE_ROWS) -> tuple:
+    """(feature slices, blocks per tile, tiles) of a K1 or K2 launch, its
+    blocks in that order from fastest to slowest."""
+    return (-(-f // FEATURE_TILE), tile_rows // ROWS_PER_BLOCK, num_tiles)
+
 
 launches = 0
 _lib = None
 
 
-def build_command(output: str = LIBRARY, source: str = SOURCE) -> list:
+def build_command(output: str, source: str = SOURCE) -> list:
     """The ``nvcc`` command that compiles ``source`` into ``output``."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -48,9 +95,11 @@ def build_command(output: str = LIBRARY, source: str = SOURCE) -> list:
             "-o", output, source]
 
 
-def build(source: str = SOURCE, library: str = LIBRARY) -> str:
-    """Compile ``source`` (atomic rename into ``library``); returns the
-    compiler's report (``-Xptxas -v``: registers, shared memory)."""
+def build(source: str = SOURCE) -> str:
+    """Compile ``source`` into :func:`library_path` (atomic rename);
+    returns the compiler's report (``-Xptxas -v``: registers, shared
+    memory)."""
+    library = library_path(source)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{library}.{os.getpid()}.tmp"
     res = subprocess.run(build_command(tmp, source), capture_output=True,
@@ -61,18 +110,28 @@ def build(source: str = SOURCE, library: str = LIBRARY) -> str:
     return res.stderr
 
 
+def load_library(source: str, signatures: dict) -> ctypes.CDLL:
+    """The kernel library of ``source``, compiled first where none exists
+    for the sources' present content; ``signatures`` gives each C
+    function's argument types (every one returns a CUDA error code)."""
+    path = library_path(source)
+    if not os.path.exists(path):
+        build(source)
+    lib = ctypes.CDLL(path)
+    for name, args in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        if not os.path.exists(LIBRARY):
-            build()
-        lib = ctypes.CDLL(LIBRARY)
-        for name in ("dedup_spmm_f32", "dedup_spmm_bf16"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                                   ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
+        sig = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]
+        _lib = load_library(SOURCE, {"dedup_spmm_f32": sig,
+                                     "dedup_spmm_bf16": sig})
     return _lib
 
 

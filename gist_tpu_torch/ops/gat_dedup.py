@@ -40,7 +40,6 @@ from gist_tpu_torch.ops.dedup_spmm import CU, TILE_ROWS
 NEG_INF = -1e30
 
 SOURCE = os.path.join(os.path.dirname(dedup_spmm.SOURCE), "gat_dedup.cu")
-LIBRARY = os.path.join(dedup_spmm.BUILD_DIR, "libgat_dedup.so")
 
 launches_fwd = 0
 launches_b1 = 0
@@ -53,33 +52,16 @@ def reset_launches() -> None:
     launches_fwd = launches_b1 = launches_b2 = 0
 
 
-def build_command(output: str = LIBRARY) -> list:
-    """The ``nvcc`` command that compiles the kernels into ``output``."""
-    return dedup_spmm.build_command(output, SOURCE)
-
-
-def build() -> str:
-    """Compile the kernels (atomic rename into ``LIBRARY``); returns the
-    compiler's report (``-Xptxas -v``)."""
-    return dedup_spmm.build(SOURCE, LIBRARY)
-
-
 def _load():
     global _lib
     if _lib is None:
-        if not os.path.exists(LIBRARY):
-            build()
-        lib = ctypes.CDLL(LIBRARY)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         sigs = {"gat_fwd": [p] * 9 + [i, i, i, f, p],
                 "gat_bwd_b1": [p] * 11 + [i, i, f, p],
                 "gat_bwd_b2": [p] * 12 + [i, i, f, p]}
-        for name, args in sigs.items():
-            for suffix in ("f32", "bf16"):
-                fn = getattr(lib, f"{name}_{suffix}")
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = dedup_spmm.load_library(SOURCE, {
+            f"{name}_{suffix}": args for name, args in sigs.items()
+            for suffix in ("f32", "bf16")})
     return _lib
 
 

@@ -5,7 +5,8 @@ Counterpart of the split branch of ``gist_tpu/ops/pallas_spmm.py``
 (``_split_kernel``, ``_spmm_split_call``); the chunked runner,
 ``_run_dedup_split_chunked``, is
 :func:`gist_tpu_torch.ops.dedup_spmm.run_dedup_chunked`.
-The kernel source is ``gist_tpu_torch/csrc/split_spmm.cu``; it is
+The kernel source is ``gist_tpu_torch/csrc/split_spmm.cu`` (its walk
+over the count blocks in ``csrc/count_block.cuh``, shared with K1); it is
 compiled by ``nvcc`` for ``sm_90a`` into ``gist_tpu_torch/_build/`` at
 first use and loaded with ctypes through a plain C interface, as K1 is.
 
@@ -29,35 +30,18 @@ TILE_ROWS = (64, 128)
 CUS = (512, 1024)
 
 SOURCE = os.path.join(os.path.dirname(dedup_spmm.SOURCE), "split_spmm.cu")
-LIBRARY = os.path.join(dedup_spmm.BUILD_DIR, "libsplit_spmm.so")
 
 launches = 0
 _lib = None
 
 
-def build_command(output: str = LIBRARY) -> list:
-    """The ``nvcc`` command that compiles the kernel into ``output``."""
-    return dedup_spmm.build_command(output, SOURCE)
-
-
-def build() -> str:
-    """Compile the kernel (atomic rename into ``LIBRARY``); returns the
-    compiler's report (``-Xptxas -v``)."""
-    return dedup_spmm.build(SOURCE, LIBRARY)
-
-
 def _load():
     global _lib
     if _lib is None:
-        if not os.path.exists(LIBRARY):
-            build()
-        lib = ctypes.CDLL(LIBRARY)
         p, i = ctypes.c_void_p, ctypes.c_int
-        for name in ("split_spmm_f32", "split_spmm_bf16"):
-            fn = getattr(lib, name)
-            fn.argtypes = [p] * 8 + [i, ctypes.c_int64, i, i, i, p]
-            fn.restype = ctypes.c_int
-        _lib = lib
+        sig = [p] * 8 + [i, ctypes.c_int64, i, i, i, p]
+        _lib = dedup_spmm.load_library(SOURCE, {"split_spmm_f32": sig,
+                                                "split_spmm_bf16": sig})
     return _lib
 
 

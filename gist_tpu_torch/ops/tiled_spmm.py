@@ -26,35 +26,17 @@ from gist_tpu_torch.graph import TiledCSR
 from gist_tpu_torch.ops import dedup_spmm
 
 SOURCE = os.path.join(os.path.dirname(dedup_spmm.SOURCE), "tiled_spmm.cu")
-LIBRARY = os.path.join(dedup_spmm.BUILD_DIR, "libtiled_spmm.so")
 
 launches = 0
 _lib = None
 
 
-def build_command(output: str = LIBRARY) -> list:
-    """The ``nvcc`` command that compiles the kernel into ``output``."""
-    return dedup_spmm.build_command(output, SOURCE)
-
-
-def build() -> str:
-    """Compile the kernel (atomic rename into ``LIBRARY``); returns the
-    compiler's report (``-Xptxas -v``)."""
-    return dedup_spmm.build(SOURCE, LIBRARY)
-
-
 def _load():
     global _lib
     if _lib is None:
-        if not os.path.exists(LIBRARY):
-            build()
-        lib = ctypes.CDLL(LIBRARY)
-        for name in ("tiled_spmm_f32", "tiled_spmm_bf16"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
+        sig = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        _lib = dedup_spmm.load_library(SOURCE, {"tiled_spmm_f32": sig,
+                                                "tiled_spmm_bf16": sig})
     return _lib
 
 

@@ -58,17 +58,46 @@ def _dense(s, r, n):
 
 
 CASES = ["several_tiles", "multi_job", "empty_tiles", "multigraph"]
+# cases that edit the counts of one job after the build, for the sparse
+# walk of K1 and K2: all zero, every count 127 (a full list for every
+# row), one nonzero in the last slot of the last step
+W_EDITS = ["zero_job", "full_counts", "last_slot"]
 
 
-@pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("dtype,f", [(torch.float32, 37), (torch.float32, 256),
-                                     (torch.bfloat16, 100)])
+def _edit_counts(w, job, edit):
+    """Edit ``w[job]`` (int8, (TN, CU)) in place."""
+    if edit == "zero_job":
+        w[job] = 0
+    elif edit == "full_counts":
+        w[job] = 127
+    else:
+        w[job] = 0
+        w[job, -1, -1] = 3
+
+
+# F across the slice edges (1, 64, 128 + 1) and pointer or row widths that
+# are not 16-byte multiples (37, 100, 602); bf16 at odd F copies rows two
+# bytes at a time
+K1_WIDTHS = [(torch.float32, 1), (torch.float32, 37), (torch.float32, 64),
+             (torch.float32, 100), (torch.float32, 129),
+             (torch.float32, 256), (torch.float32, 602),
+             (torch.bfloat16, 100), (torch.bfloat16, 37)]
+
+
+@pytest.mark.parametrize("case", CASES + W_EDITS)
+@pytest.mark.parametrize("dtype,f", K1_WIDTHS)
 def test_kernel_matches_plain(cuda, case, dtype, f):
+    """K1 against its plain walk (1e-5 relative to the plain result's max
+    in fp32, 1e-2 in bf16) and, on unedited layouts in fp32, against the
+    dense product; two launches give the same bits (no atomics)."""
     rng = np.random.default_rng(0)
-    s, r, n = _edges(case, rng)
+    s, r, n = _edges("multi_job" if case in W_EDITS else case, rng)
     d = _build_dedup_tiles(s, r, n, reorder=False)
     # padding jobs past job_offsets[-1] must never be read
     d = pad_dedup_tiles(d, int(d.w_blocks.shape[0]) + 3, d.max_jobs + 1)
+    if case in W_EDITS:
+        # the last job of tile 0, which holds several
+        _edit_counts(d.w_blocks, int(d.job_offsets[1]) - 1, case)
     x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32))
     x = x.to(dtype).to(cuda)
     dc = d.to(cuda)
@@ -76,12 +105,15 @@ def test_kernel_matches_plain(cuda, case, dtype, f):
     got = K.dedup_spmm(dc.job_offsets, dc.w_blocks, dc.u_senders, x)
     torch.cuda.synchronize()
     assert K.launches == before + 1
+    assert torch.equal(got, K.dedup_spmm(dc.job_offsets, dc.w_blocks,
+                                         dc.u_senders, x))
     want = K.dedup_spmm_reference(dc.job_offsets, dc.w_blocks,
                                   dc.u_senders, x)
     assert got.dtype == dtype and got.shape == want.shape
-    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    err = (got.float() - want.float()).abs().max() / \
+        want.float().abs().max().clamp(min=1e-30)
     assert err <= (1e-5 if dtype == torch.float32 else 1e-2), err
-    if dtype == torch.float32:
+    if dtype == torch.float32 and case not in W_EDITS:
         oracle = _dense(s, r, n) @ x.double().cpu().numpy()
         np.testing.assert_allclose(got[:n].cpu().numpy(), oracle,
                                    rtol=1e-5, atol=1e-4)
@@ -270,28 +302,42 @@ def _split_edges(kind, rng):
     return s, r, n, threshold
 
 
-@pytest.mark.parametrize("kind", ["mixed", "all_remote", "all_direct"])
+@pytest.mark.parametrize("kind", ["mixed", "all_remote", "all_direct"]
+                         + W_EDITS)
 @pytest.mark.parametrize("tn,cu", [(64, 1024), (64, 512), (128, 1024),
                                    (128, 512)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_split_kernel_matches_plain(cuda, kind, tn, cu, dtype):
+@pytest.mark.parametrize("dtype,f", [(torch.float32, 100),
+                                     (torch.bfloat16, 100),
+                                     (torch.float32, 1), (torch.float32, 37),
+                                     (torch.float32, 64),
+                                     (torch.float32, 129),
+                                     (torch.float32, 602)])
+def test_split_kernel_matches_plain(cuda, kind, tn, cu, dtype, f):
     """K2 once per chunk against its plain version on the same inputs:
     1e-5 relative to the plain result's max in fp32, 1e-2 in bf16; in
-    fp32 also against the dense product.  x's rows are not padded, so
-    the last direct block reads past N."""
+    fp32 on unedited layouts also against the dense product; two launches
+    give the same bits.  x's rows are not padded, so the last direct
+    block reads past N.  The count edits hit chunk 0's first direct job
+    (mixed layout)."""
     from gist_tpu_torch.graph import _build_dedup_split_chunked
     from gist_tpu_torch.ops import split_spmm as K2
     rng = np.random.default_rng(5)
-    s, r, n, threshold = _split_edges(kind, rng)
+    s, r, n, threshold = _split_edges(
+        "mixed" if kind in W_EDITS else kind, rng)
     t = _build_dedup_split_chunked(s, r, n, tile_rows=tn, cu=cu,
                                    threshold=threshold, chunk_rows=1024)
     direct = int(t.is_dir.sum())
     assert {"mixed": direct > 0, "all_remote": direct == 0,
-            "all_direct": direct == int(t.job_offsets[:, -1].sum())}[kind]
+            "all_direct": direct == int(t.job_offsets[:, -1].sum())}.get(
+                kind, direct > 0)
     # chunks are sized by remote rows: an all-direct layout has one
     assert t.n_chunks > 1 or kind == "all_direct"
+    if kind in W_EDITS:
+        jobs = int(t.job_offsets[0, -1])
+        job = int(np.flatnonzero(t.is_dir[0, :jobs].numpy() == 1)[0])
+        _edit_counts(t.w_blocks[0], job, kind)
     tc = t.to(cuda)
-    x = torch.from_numpy(rng.standard_normal((n, 100)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32))
     xp = x.to(dtype).to(cuda)[tc.perm.long()].contiguous()
     before = K2.launches
     for c in range(tc.n_chunks):
@@ -299,12 +345,13 @@ def test_split_kernel_matches_plain(cuda, kind, tn, cu, dtype):
                tc.w_blocks[c], tc.u_senders[c])
         got = K2.split_spmm(*lay, xp)
         torch.cuda.synchronize()
+        assert torch.equal(got, K2.split_spmm(*lay, xp))
         want = K2.split_spmm_reference(*lay, xp)
         assert got.dtype == dtype and got.shape == want.shape
         err = _rel(got, want)
         assert err <= (1e-5 if dtype == torch.float32 else 1e-2), err
-    assert K2.launches == before + tc.n_chunks
-    if dtype == torch.float32:
+    assert K2.launches == before + 2 * tc.n_chunks
+    if dtype == torch.float32 and kind not in W_EDITS:
         out = K.run_dedup_chunked(tc, x.to(cuda), n)
         oracle = _dense(s, r, n) @ x.double().numpy()
         np.testing.assert_allclose(out.cpu().numpy(), oracle, rtol=1e-5,
