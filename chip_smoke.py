@@ -20,12 +20,14 @@ raising on failure:
    clusters, counting K1 launches;
 7. GAT kernels: K4, K5 and K6 against their plain versions at the shapes
    of one real batch of the GAT main path (synth-reddit-small, psize 10,
-   batch 4), with times beside the segment composite's;
+   batch 4), with times beside the segment composite's; K6 also with its
+   profiler time and two launches held bitwise equal;
 8. GAT reference: gradients and three training steps of a GAT
    sub-model (width 256, 2 heads, 2 layers) through K4-K6 and through
    the segment path must agree;
 9. GAT main path: ``train_ist_cluster`` with GAT h512, 2 heads, K=2,
    2 layers, 2 rounds x 2 subnets x 4 steps, counting K4-K6 launches;
+   again under ``torch.profiler`` for its device time per step;
 10. split kernels: K2 against its plain version on the
     synth-amazon2m-small split layouts (TN 64, threshold 128, CU 1024
     and 512), forward and transpose, F=100 fp32 and bf16 and F=47 fp32,
@@ -47,12 +49,21 @@ raising on failure:
     ``ClusterSampler(synth-reddit-small, 10, 4, tile_mode="gather")``
     and at the full synth-reddit-small graph's (the v1 main path's),
     with times beside the bound, ``torch.sparse.mm`` (K3) and the
-    segment composite (K7-K9);
+    segment composite (K7-K9); K3 also with its profiler time and two
+    launches held bitwise equal, and its launch plans side by side at
+    F=41, 47 and 256 on the full graph;
 15. v1 reference: one GAT h512 (2 heads, 2 layers) and one GCN h256
     training run of two Adam steps on the full synth-reddit-small v1
     graph through K7-K9 or K3 and through the segment path must agree;
 16. v1 main path: ``train_full_graph`` on that graph for 6 epochs with
-    GAT h512 (K7-K9) and with GCN h256 (K3), counting launches.
+    GAT h512 (K7-K9) and with GCN h256 (K3), counting launches; each
+    again under ``torch.profiler`` for its device time per epoch.
+
+Kernel and library times: ``ms`` is device time per call, one CUDA
+event pair around back-to-back calls queued ahead of the card
+(:func:`_kernel_ms`); ``call_ms`` is one call between two events, the
+wrapper's host work included (:func:`_call_ms`, the figure of earlier
+runs).  Plain versions and model forwards keep one-call timing.
 
 Then the kernel summary line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card or
@@ -109,7 +120,11 @@ def phase_build():
     return time.time() - t0
 
 
-def _median_ms(torch, fn, reps, warmup=2):
+def _call_ms(torch, fn, reps, warmup=2):
+    """Median milliseconds of one call between two CUDA events on an idle
+    stream (``call_ms``): the wrapper's host work (its checks,
+    allocations and the ctypes call) falls inside it.  Kept beside
+    :func:`_kernel_ms` so that times of earlier runs stay comparable."""
     for _ in range(warmup):
         fn()
     times = []
@@ -122,6 +137,86 @@ def _median_ms(torch, fn, reps, warmup=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _kernel_ms(torch, fn, windows=5, window_ms=4.0):
+    """Device milliseconds per call (``ms``): one CUDA event pair around
+    n back-to-back calls, divided by n, the median of ``windows`` such
+    windows; n makes a window last about ``window_ms``.  Before each
+    window the stream sleeps for 1.5x the host time that n calls take to
+    enqueue, so the host has queued every call before the first one
+    starts and no host work falls between two launches."""
+    fn()
+    torch.cuda.synchronize()
+    one = _call_ms(torch, fn, reps=3, warmup=0)
+    n = max(1, min(2000, round(window_ms / max(one, 1e-3))))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(enqueue_s * 1.5 * 2e9) + 1_000_000   # ~2 GHz SM clock
+    times = []
+    for _ in range(windows):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def _device_events(prof):
+    """The device-side events (kernels, copies, sets) of a profile."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _profiled(torch, fn):
+    """(fn's result, the ``torch.profiler`` trace of the call)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    return res, prof
+
+
+def _profiled_ms(torch, fn, name, calls=5):
+    """Mean device duration (ms) of the kernels whose name holds ``name``
+    over ``calls`` calls of ``fn``, from one ``torch.profiler`` trace;
+    None where the trace holds no such kernel."""
+    fn()
+    torch.cuda.synchronize()
+    _, prof = _profiled(torch, lambda: [fn() for _ in range(calls)])
+    durs = [e.time_range.elapsed_us() for e in _device_events(prof)
+            if name in e.name]
+    return sum(durs) / len(durs) / 1e3 if durs else None
+
+
+def _device_split(prof, units, kernels):
+    """Device time of a profiled run: busy (the sum of its device
+    events, which one stream runs one after another), the span from the
+    first event's start to the last one's end, the idle share of that
+    span, busy per unit (step or epoch), and the device time per unit of
+    the kernels whose names hold each of ``kernels`` (label -> name)."""
+    ev = _device_events(prof)
+    if not ev:
+        return {"device_profile": "no device events in the trace"}
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    span = (max(e.time_range.end for e in ev)
+            - min(e.time_range.start for e in ev)) / 1e3
+    return {"device_busy_ms": busy, "device_span_ms": span,
+            "device_idle_share": 1 - busy / span if span else None,
+            "device_busy_ms_per_unit": busy / units,
+            "kernel_ms_per_unit": {
+                label: sum(e.time_range.elapsed_us() for e in ev
+                           if name in e.name) / 1e3 / units
+                for label, name in kernels.items()}}
 
 
 def _bound(nbytes, flops, dtype):
@@ -216,18 +311,23 @@ def phase_kernels(torch, device, sampler):
             adj = _csr_adjacency(torch, g, dtype, device,
                                  transpose=direction == "bwd")
             try:
-                library_ms = _median_ms(
+                library_call_ms = _call_ms(
                     torch, lambda: torch.sparse.mm(adj, x), reps=10)
             except RuntimeError as e:   # no such library call for dtype
-                library_ms, lib_note = None, str(e).splitlines()[0]
+                library_ms = library_call_ms = None
+                lib_note = str(e).splitlines()[0]
             else:
+                library_ms = _kernel_ms(torch,
+                                        lambda: torch.sparse.mm(adj, x))
                 lib_note = "torch.sparse.mm on a CSR adjacency"
-            ms = _median_ms(torch, kernel, reps=20)
+            ms = _kernel_ms(torch, kernel)
             row = {"phase": "kernels", "case": f"{direction} F={f} "
                    f"{str(dtype).split('.')[-1]}",
                    "max_abs_err": abs_err, "rel_err": rel_err, "tol": tol,
-                   "ms": ms, "plain_ms": _median_ms(torch, plain, reps=3),
-                   "library_ms": library_ms, "library": lib_note,
+                   "ms": ms, "call_ms": _call_ms(torch, kernel, reps=20),
+                   "plain_ms": _call_ms(torch, plain, reps=3),
+                   "library_ms": library_ms,
+                   "library_call_ms": library_call_ms, "library": lib_note,
                    "ms_over_library": library_ms and ms / library_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "bound_bytes": nbytes, "useful_flops": flops,
@@ -401,11 +501,28 @@ def _nnz(torch, layout):
         layout.w_blocks[:int(layout.job_offsets[-1])]))
 
 
+def _outputs(res):
+    return res if isinstance(res, (tuple, list)) else (res,)
+
+
+def _redesign_checks(torch, kernel, kernel_name):
+    """For a kernel redesigned to sum without atomics: its device time
+    in one ``torch.profiler`` trace (cross-checks ``ms``) and whether two
+    launches on the same inputs give the same bits."""
+    first, second = _outputs(kernel()), _outputs(kernel())
+    torch.cuda.synchronize()
+    return {"profiler_ms": _profiled_ms(torch, kernel, kernel_name),
+            "bitwise_repeat": all(torch.equal(a, b)
+                                  for a, b in zip(first, second))}
+
+
 def _gat_row(torch, name, case, got, want, tol, kernel, plain, segment,
-             nbytes, flops, dtype):
+             nbytes, flops, dtype, kernel_name=None):
     """Time a GAT kernel beside its plain version and the segment
     composite; raise unless every output is finite and within ``tol`` of
-    the plain result relative to its max."""
+    the plain result relative to its max.  With ``kernel_name`` (a
+    redesigned kernel) also its profiler time, and raise unless two
+    launches give the same bits."""
     torch.cuda.synchronize()
     abs_err = rel_err = 0.0
     for a, b in zip(got, want):
@@ -417,14 +534,19 @@ def _gat_row(torch, name, case, got, want, tol, kernel, plain, segment,
     bound_ms, bound_by = _bound(nbytes, flops, dtype)
     row = {"phase": "gat_kernels", "kernel": name, "case": case,
            "max_abs_err": abs_err, "rel_err": rel_err, "tol": tol,
-           "ms": _median_ms(torch, kernel, reps=20),
-           "plain_ms": _median_ms(torch, plain, reps=3),
-           "segment_ms": _median_ms(torch, segment, reps=10),
+           "ms": _kernel_ms(torch, kernel),
+           "call_ms": _call_ms(torch, kernel, reps=20),
+           "plain_ms": _call_ms(torch, plain, reps=3),
+           "segment_ms": _kernel_ms(torch, segment),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_bytes": nbytes, "useful_flops": flops}
+    if kernel_name:
+        row.update(_redesign_checks(torch, kernel, kernel_name))
     emit(row)
     if not rel_err <= tol:
         raise RuntimeError(f"{name} disagrees with its plain version: {row}")
+    if kernel_name and not row["bitwise_repeat"]:
+        raise RuntimeError(f"{name}: two launches differ: {row}")
     return row
 
 
@@ -515,7 +637,8 @@ def phase_gat_kernels(torch, device, sampler):
             lambda: G.gat_bwd_b2(*b2_args),
             lambda: G.gat_bwd_b2_reference(*b2_args), seg_bwd,
             _layout_bytes(tt) + 2 * rt * o * item + rt * 8 + n * o * 4
-            + n * 16, nnz_t * (4 * o + 10), dtype)
+            + n * 16, nnz_t * (4 * o + 10), dtype,
+            kernel_name="gat_bwd_b2_kernel")
     return rows
 
 
@@ -523,8 +646,8 @@ def phase_gat_reference(torch, device, sampler):
     """One GAT sub-model of the main path (width 256, 2 heads, 2 layers)
     on three real batches, through K4-K6 and through the segment path:
     the first step's parameter gradients and the losses of three Adam
-    steps must agree to 1e-4 relative (fp32; summation order and the
-    fused backward's atomics are the only differences)."""
+    steps must agree to 1e-4 relative (fp32; summation order and K5's
+    atomics are the only differences)."""
     from gist_tpu_torch.ist.ultrawide import build_local_burst_single
     from gist_tpu_torch.models import gat
     from gist_tpu_torch.models.common import masked_cross_entropy
@@ -580,6 +703,11 @@ def phase_gat_reference(torch, device, sampler):
 
 
 def phase_gat_main_path(torch, ds):
+    """The GAT main path, counting K4-K6 launches; then the same run once
+    more under ``torch.profiler`` for its device time per step (the
+    counts and host walls are the first run's)."""
+    import dataclasses
+
     from gist_tpu_torch.models import gat
     from gist_tpu_torch.ops import gat_dedup as G
     from gist_tpu_torch.train.common import TrainConfig
@@ -588,12 +716,16 @@ def phase_gat_main_path(torch, ds):
     cfg = gat.GATConfig(602, 512, 41, n_layers=2, n_heads=2)
     tc = TrainConfig(lr=1e-2, weight_decay=5e-4, n_epochs=8, num_subnet=2,
                      iter_per_site=4)
+
+    def run():
+        return train_ist_cluster(dataclasses.replace(ds), cfg, tc, psize=10,
+                                 batch_size=4, normalize=True, model=gat,
+                                 kind="gat", verbose=False, device="cuda")
     G.reset_launches()
-    r = train_ist_cluster(ds, cfg, tc, psize=10, batch_size=4,
-                          normalize=True, model=gat, kind="gat",
-                          verbose=False, device="cuda")
+    r = run()
     torch.cuda.synchronize()
     launches = (G.launches_fwd, G.launches_b1, G.launches_b2)
+    _, prof = _profiled(torch, run)
     steps = len(r["losses"]) * tc.num_subnet * tc.iter_per_site
     emit({"phase": "gat_main_path", "rounds": len(r["losses"]),
           "steps": steps, "losses": r["losses"],
@@ -601,7 +733,13 @@ def phase_gat_main_path(torch, ds):
           "edges_per_sec": r["edges_per_sec"], "val_acc": r["val_accs"],
           "test_acc": r["test_accs"], "eval_times": r["eval_times"],
           "edges_per_batch": r["edges_per_batch"],
-          "launches_k4_k5_k6": list(launches)})
+          "launches_k4_k5_k6": list(launches),
+          "device_per_step": _device_split(
+              prof, steps, {"K4": "gat_fwd_kernel", "K5": "gat_bwd_b1_kernel",
+                            "K6": "gat_bwd_b2_kernel"}),
+          "device_note": "a second run under torch.profiler: busy time "
+                         "of the training steps and the full-graph evals, "
+                         "per training step"})
     if len(r["losses"]) != 2 or steps != 16:
         raise RuntimeError(f"expected 2 rounds of 8 steps, got {steps}")
     if launches != (2 * steps, 3 * steps, 3 * steps):
@@ -722,19 +860,23 @@ def phase_split_kernels(torch, device, g):
                 tol = 1e-5 if dtype == torch.float32 else 1e-2
                 bound_ms, bound_by, nbytes, flops = _split_bound(
                     torch, t, x, n_out)
-                library_ms = None
+                library_ms = library_call_ms = None
                 if dtype == torch.float32:
-                    library_ms = _median_ms(
+                    library_ms = _kernel_ms(
+                        torch, lambda: torch.sparse.mm(adj, x))
+                    library_call_ms = _call_ms(
                         torch, lambda: torch.sparse.mm(adj, x), reps=10)
-                ms = _median_ms(torch, kernel, reps=10)
+                ms = _kernel_ms(torch, kernel)
                 row = {"phase": "split_kernels",
                        "case": f"{direction} CU={cu} F={f} "
                                f"{str(dtype).split('.')[-1]}",
                        "max_abs_err": abs_err, "rel_err": rel_err,
                        "tol": tol, "ms": ms,
-                       "plain_ms": _median_ms(torch, plain, reps=2,
-                                              warmup=1),
+                       "call_ms": _call_ms(torch, kernel, reps=10),
+                       "plain_ms": _call_ms(torch, plain, reps=2,
+                                            warmup=1),
                        "library_ms": library_ms,
+                       "library_call_ms": library_call_ms,
                        "library": "torch.sparse.mm on a CSR adjacency "
                                   "(fp32 only)",
                        "ms_over_library": library_ms and ms / library_ms,
@@ -927,17 +1069,22 @@ def _check_chunked_k1(torch, device, graph):
             bound_ms, bound_by = _bound(
                 lay_bytes + (n + out_rows) * f * 4, 2 * nnz * f,
                 torch.float32)
-            ms = _median_ms(torch, lambda: K.run_dedup_chunked(t, x, n),
-                            reps=5)
-            library_ms = _median_ms(torch, lambda: torch.sparse.mm(adj, x),
-                                    reps=5)
+            ms = _kernel_ms(torch, lambda: K.run_dedup_chunked(t, x, n),
+                            windows=3)
+            call_ms = _call_ms(torch, lambda: K.run_dedup_chunked(t, x, n),
+                               reps=5)
+            library_ms = _kernel_ms(torch, lambda: torch.sparse.mm(adj, x),
+                                    windows=3)
+            library_call_ms = _call_ms(
+                torch, lambda: torch.sparse.mm(adj, x), reps=5)
             row = {"phase": "full_path",
                    "case": f"run_dedup_chunked {direction} F={f} float32",
                    "n_chunks": t.n_chunks, "max_abs_err": abs_err,
                    "rel_err": rel_err, "segment_rel_err": seg_err,
                    "library_rel_err": lib_err, "tol": 1e-5, "ms": ms,
-                   "plain_ms": plain_ms, "segment_ms": segment_ms,
-                   "library_ms": library_ms,
+                   "call_ms": call_ms, "plain_ms": plain_ms,
+                   "segment_ms": segment_ms, "library_ms": library_ms,
+                   "library_call_ms": library_call_ms,
                    "library": "torch.sparse.mm on a CSR adjacency",
                    "ms_over_library": ms / library_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
@@ -989,15 +1136,15 @@ def phase_gat_chunked(torch, device, ds, graph):
         row = {"phase": "gat_chunked", "k4_launches": launches,
                "max_abs_err": err, "rel_err": rel, "tol": 1e-4,
                "finite": bool(torch.isfinite(got).all()),
-               "layer0_attention_ms": _median_ms(
+               "layer0_attention_ms": _call_ms(
                    torch, lambda: G.gat_attention_dedup_chunked(
                        graph, z, src, dst), reps=3, warmup=1),
                "layer0_bound_ms": l0_bound[0],
                "layer0_bound_by": l0_bound[1],
-               "ms": _median_ms(torch, lambda: gat.apply(
+               "ms": _call_ms(torch, lambda: gat.apply(
                    params, graph, x, cfg, backend="dedup"), reps=3,
                    warmup=1),
-               "segment_ms": _median_ms(torch, lambda: gat.apply(
+               "segment_ms": _call_ms(torch, lambda: gat.apply(
                    params, graph, x, cfg, backend="segment"), reps=3,
                    warmup=1)}
     emit(row)
@@ -1017,10 +1164,13 @@ def _v1_layout_bytes(t):
 
 
 def _v1_row(torch, phase, name, case, got, want, tol, kernel, plain,
-            nbytes, flops, dtype, timers, plain_reps):
+            nbytes, flops, dtype, timers, plain_reps, kernel_name=None):
     """Time a v1 kernel beside its plain version and the ``timers``
     (name -> function or None); raise unless every output is finite and
-    within ``tol`` of the plain result relative to its max."""
+    within ``tol`` of the plain result relative to its max.  With
+    ``kernel_name`` (a redesigned kernel) also its profiler time and
+    one-call time of the ``timers``, and raise unless two launches give
+    the same bits."""
     torch.cuda.synchronize()
     abs_err = rel_err = 0.0
     for a, b in zip(got, want):
@@ -1033,16 +1183,23 @@ def _v1_row(torch, phase, name, case, got, want, tol, kernel, plain,
     bound_ms, bound_by = _bound(nbytes, flops, dtype)
     row = {"phase": phase, "kernel": name, "case": case,
            "max_abs_err": abs_err, "rel_err": rel_err, "tol": tol,
-           "ms": _median_ms(torch, kernel, reps=20),
-           "plain_ms": _median_ms(torch, plain, reps=plain_reps,
-                                  warmup=1),
-           **{k: None if fn is None else _median_ms(torch, fn, reps=5)
+           "ms": _kernel_ms(torch, kernel),
+           "call_ms": _call_ms(torch, kernel, reps=20),
+           "plain_ms": _call_ms(torch, plain, reps=plain_reps, warmup=1),
+           **{k: None if fn is None else _kernel_ms(torch, fn)
               for k, fn in timers.items()},
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_bytes": nbytes, "useful_flops": flops}
+    if kernel_name:
+        row.update({k.replace("_ms", "_call_ms"):
+                    None if fn is None else _call_ms(torch, fn, reps=10)
+                    for k, fn in timers.items()})
+        row.update(_redesign_checks(torch, kernel, kernel_name))
     emit(row)
     if not rel_err <= tol:
         raise RuntimeError(f"{name} disagrees with its plain version: {row}")
+    if kernel_name and not row["bitwise_repeat"]:
+        raise RuntimeError(f"{name}: two launches differ: {row}")
     return row
 
 
@@ -1095,7 +1252,7 @@ def _v1_kernel_rows(torch, device, g, phase, k3_cases, gat_cases,
                 2 * e * f, dtype,
                 {"library_ms": _library_spmm(torch, g, dtype, device,
                                              direction == "bwd", x)},
-                plain_reps)
+                plain_reps, kernel_name="tiled_spmm_kernel")
     slope = 0.01
     tf, tt = gd.tiled, gd.tiled_t
     rows_f, rows_t = tf.num_tiles * tf.tile_rows, tt.num_tiles * tt.tile_rows
@@ -1166,6 +1323,54 @@ def _v1_shape(phase, g):
           "slots_padded": t.senders.shape[0], "max_chunks": t.max_chunks,
           "tiles_t": tt.num_tiles, "slots_t": int(tt.tile_offsets[-1]),
           "max_chunks_t": tt.max_chunks})
+
+
+def phase_k3_plans(torch, device, g):
+    """K3's launch plans side by side on the full synth-reddit-small v1
+    graph, forward and transpose, fp32: at F=41 and F=47 (odd rows,
+    scalar loads) and at F=256 (float4 loads) the edges and the rows
+    mode with groups of 8 and 16 lanes.  Each is held against the chosen plan's output (1e-5
+    relative to its max; the chosen plan is held against the plain walk
+    in the v1 phases) and timed like the kernels.  Returns the rows."""
+    import numpy as np
+
+    from gist_tpu_torch.ops import tiled_spmm as K3
+
+    gd = g.to(device)
+    deg = torch.bincount(gd.receivers[:g.n_edges].long(),
+                         minlength=g.n_nodes)
+    emit({"phase": "k3_plans", "in_degree_mean": float(deg.float().mean()),
+          "in_degree_max": int(deg.max()),
+          "in_degree_p99": float(deg.float().quantile(0.99))})
+    rng = np.random.default_rng(0)
+    out = []
+    for f, vec in ((41, 1), (47, 1), (256, 4)):
+        # each group's fewest vectors a lane that cover F, at most
+        # MAX_ACC accumulators
+        plans = [K3.Plan(rows, group,
+                         min(-(-f // (group * vec)), K3.MAX_ACC // vec), vec)
+                 for rows in (False, True) for group in K3.GROUPS]
+        x = torch.from_numpy(rng.standard_normal(
+            (g.n_nodes, f)).astype(np.float32)).to(device)
+        for direction, t in (("fwd", gd.tiled), ("bwd", gd.tiled_t)):
+            want = K3.tiled_spmm(t, x)
+            chosen = K3.launch_plan(f, K3.vec_width(f, 4, x.data_ptr(),
+                                                    want.data_ptr()))
+            for plan in dict.fromkeys(plans + [chosen]):
+                got = K3.run_plan(t, x, plan)
+                err = float((got - want).abs().max() / want.abs().max())
+                row = {"phase": "k3_plans",
+                       "case": f"{direction} F={f} float32",
+                       "plan": plan._asdict(), "chosen": plan == chosen,
+                       "ms": _kernel_ms(torch,
+                                        lambda: K3.run_plan(t, x, plan)),
+                       "rel_err_vs_chosen": err}
+                emit(row)
+                if not err <= 1e-5:
+                    raise RuntimeError(f"K3 plans disagree: {row}")
+                out.append(row)
+        del x
+    return out
 
 
 def phase_v1_kernels(torch, device, ds):
@@ -1298,8 +1503,10 @@ def phase_v1_main_path(torch, ds, graph, layout_build_s):
     v1 graph, 6 epochs each at lr 1e-2 and weight decay 5e-4, with GAT
     h512 (2 heads, 2 layers: per epoch 3 K7 launches in training and 3
     in the eval, 3 K8 and 3 K9) and GCN h256 (1 hidden layer, dropout
-    0.5: per epoch 4 K3 launches forward, 2 on ``tiled_t``).  Returns
-    the launches by kernel."""
+    0.5: per epoch 4 K3 launches forward, 2 on ``tiled_t``); each run
+    once more under ``torch.profiler`` for its device time per epoch (the
+    counts and host times are the first run's).  Returns the launches by
+    kernel."""
     from gist_tpu_torch.models import gat, gcn
     from gist_tpu_torch.ops import gat_tiled as GT
     from gist_tpu_torch.ops import tiled_spmm as K3
@@ -1313,21 +1520,31 @@ def phase_v1_main_path(torch, ds, graph, layout_build_s):
                                        n_layers=1, dropout=0.5)))
     launches = {}
     for name, model, cfg in runs:
+        def run():
+            return train_full_graph(ds, cfg, tc, model=model, graph=graph,
+                                    device="cuda", verbose=False)
         torch.cuda.reset_peak_memory_stats()
         GT.reset_launches()
         K3.launches = 0
-        r = train_full_graph(ds, cfg, tc, model=model, graph=graph,
-                             device="cuda", verbose=False)
+        r = run()
         torch.cuda.synchronize()
         counts = {"K3": K3.launches, "K7": GT.launches_fwd,
                   "K8": GT.launches_b1, "K9": GT.launches_b2}
+        peak = torch.cuda.max_memory_allocated()
+        _, prof = _profiled(torch, run)
         emit({"phase": "v1_main_path", "model": name, "epochs": tc.n_epochs,
               "layout_build_s": layout_build_s,
               "mean_epoch_s": r["mean_epoch_s"], "kteps": r["kteps"],
               "losses": r["losses"], "val_accs": r["val_accs"],
               "test_accs": r["test_accs"],
-              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-              "launches": counts})
+              "peak_memory_bytes": peak, "launches": counts,
+              "device_per_epoch": _device_split(
+                  prof, tc.n_epochs, {"K3": "tiled_spmm_kernel",
+                                      "K7": "gat_fwd_kernel",
+                                      "K8": "gat_bwd_b1_kernel",
+                                      "K9": "gat_bwd_b2_kernel"}),
+              "device_note": "a second run under torch.profiler: busy "
+                             "time of training and eval, per epoch"})
         e = tc.n_epochs
         want = ({"K3": 0, "K7": 6 * e, "K8": 3 * e, "K9": 3 * e}
                 if name == "gat" else
@@ -1421,6 +1638,10 @@ def main():
     emit({"phase": "v1_full_graph", "seconds": time.time() - t0})
 
     t0 = time.time()
+    phase_k3_plans(torch, device, v1_graph)
+    emit({"phase": "k3_plans", "seconds": time.time() - t0})
+
+    t0 = time.time()
     v1_graph = v1_graph.to(device)
     phase_v1_reference(torch, device, ds_r, v1_graph)
     emit({"phase": "v1_reference", "seconds": time.time() - t0})
@@ -1466,12 +1687,14 @@ def main():
         "max_abs_err": max(c["max_abs_err"] for c in [
             *cases.values(), *chunked_rows.values()]
             if c["case"].endswith("float32")),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "ms": main_case["ms"], "call_ms": main_case["call_ms"],
+        "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "full_scale_pass": {k: full_case[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}]
+            "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}}]
     gat_kernels = (("K4", "gat_fwd", "gist_tpu/ops/pallas_gat.py:546"),
                    ("K5", "gat_bwd_b1", "gist_tpu/ops/pallas_gat.py:1015"),
                    ("K6", "gat_bwd_b2", "gist_tpu/ops/pallas_gat.py:1070"))
@@ -1484,7 +1707,8 @@ def main():
         "launches_by_path": {"split_gcn_step": k2_launches},
         "max_abs_err": max(c["max_abs_err"] for c in split_rows.values()
                            if c["case"].endswith("float32")),
-        "ms": split_main["ms"], "plain_ms": split_main["plain_ms"],
+        "ms": split_main["ms"], "call_ms": split_main["call_ms"],
+        "plain_ms": split_main["plain_ms"],
         "bound_ms": split_main["bound_ms"],
         "bound_by": split_main["bound_by"],
         "library_ms": split_main["library_ms"]})
@@ -1501,10 +1725,13 @@ def main():
             "max_abs_err": max(r["max_abs_err"] for (k, tag), r in
                                gat_rows.items()
                                if k == key and tag.endswith("float32")),
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "ms": main_row["ms"], "call_ms": main_row["call_ms"],
+            "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": None,
-            "segment_ms": main_row["segment_ms"]})
+            "segment_ms": main_row["segment_ms"],
+            **{k: main_row[k] for k in ("profiler_ms", "bitwise_repeat")
+               if k in main_row}})
     v1_kernels = (
         ("K3", "tiled_spmm", "tiled_spmm.cu", "pallas_spmm.py:442",
          "fwd F=256 float32", "full_graph_gcn"),
@@ -1525,12 +1752,20 @@ def main():
             "max_abs_err": max(r["max_abs_err"] for (k, tag), r in
                                [*v1_rows.items(), *v1_batch_rows.items()]
                                if k == key and tag.endswith("float32")),
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "ms": main_row["ms"], "call_ms": main_row["call_ms"],
+            "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row.get("library_ms"),
-            **({"segment_ms": main_row["segment_ms"]}
-               if "segment_ms" in main_row else {})})
+            **{k: main_row[k] for k in ("segment_ms", "library_call_ms",
+                                        "profiler_ms", "bitwise_repeat")
+               if k in main_row},
+            **({"narrow_f": {
+                d: {k: v1_rows[("K3", f"{d} F=41 float32")][k] for k in (
+                    "ms", "call_ms", "library_ms", "library_call_ms",
+                    "bound_ms", "bound_by", "max_abs_err", "rel_err",
+                    "profiler_ms", "bitwise_repeat")}
+                for d in ("fwd", "bwd")}} if key == "K3" else {})})
     emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.time() - t_all})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

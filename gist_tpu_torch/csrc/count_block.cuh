@@ -20,9 +20,10 @@
 // writes zeros) the warp
 //   1. reads its row's CU counts, 32 bytes a lane in one coalesced
 //      sweep, the next job's counts already in flight;
-//   2. turns them into the row's list of nonzero slots in slot order:
-//      each lane makes a bit mask of its nonzero bytes (a byte compare
-//      and a multiply that gathers the bits), a warp prefix sum of their
+//   2. turns them into the row's list of nonzero slots in slot order
+//      (list_nonzero, also K6's first step in gat_dedup.cu): each lane
+//      makes a bit mask of its nonzero bytes (a byte compare and a
+//      multiply that gathers the bits), a warp prefix sum of their
 //      popcounts places each lane's (slot, count) entries in a per-warp
 //      list in shared memory;
 //   3. walks the list 32 entries at a time: each lane reads one entry's
@@ -124,6 +125,64 @@ __device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// This lane's 16 * WPL counts of row r in job j of (TN x CU) blocks: the
+// lanes of a warp read the row's CU bytes in one coalesced sweep.
+template <int TN, int CU, int WPL>
+__device__ __forceinline__ void load_counts(const int8_t* __restrict__ w_blocks,
+                                            int j, int r, int lane,
+                                            uint4 (&w)[WPL]) {
+  const uint4* src =
+      reinterpret_cast<const uint4*>(w_blocks + ((size_t)j * TN + r) * CU);
+#pragma unroll
+  for (int i = 0; i < WPL; ++i) w[i] = __ldg(src + lane * WPL + i);
+}
+
+// Step 2: writes the row's (slot | count << 16) entries with a nonzero
+// count, in slot order, to list and returns their number (the same on
+// every lane).  w holds this lane's counts of slots lane * 16 * WPL ..;
+// bit b of keep keeps slot lane * 16 * WPL + b.  Ends with __syncwarp(),
+// so the list is ready for every lane.
+template <int WPL>
+__device__ __forceinline__ int list_nonzero(const uint4 (&w)[WPL],
+                                            uint32_t keep, int lane,
+                                            uint32_t* list) {
+  constexpr unsigned ALL = 0xffffffffu;
+  constexpr int SPL = 16 * WPL;            // slots per lane
+  // bit b: this lane's slot lane * SPL + b has a nonzero count
+  uint32_t m = 0;
+#pragma unroll
+  for (int i = 0; i < WPL; ++i)
+    m |= (nonzero4(w[i].x) | nonzero4(w[i].y) << 4 |
+          nonzero4(w[i].z) << 8 | nonzero4(w[i].w) << 12)
+         << (16 * i);
+  m &= keep;
+  const int n = __popc(m);
+  int end = n;                             // inclusive prefix sum
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int y = __shfl_up_sync(ALL, end, d);
+    if (lane >= d) end += y;
+  }
+  const int total = __shfl_sync(ALL, end, 31);
+  int pos = end - n;
+#pragma unroll
+  for (int i = 0; i < 4 * WPL; ++i) {
+    const uint32_t word = i % 4 == 0   ? w[i / 4].x
+                          : i % 4 == 1 ? w[i / 4].y
+                          : i % 4 == 2 ? w[i / 4].z
+                                       : w[i / 4].w;
+    uint32_t mi = (m >> (4 * i)) & 0xfu;
+    while (mi != 0) {
+      const int b = __ffs(mi) - 1;
+      mi &= mi - 1;
+      list[pos++] = (uint32_t)(lane * SPL + 4 * i + b) |
+                    ((word >> (8 * b)) & 0xffu) << 16;
+    }
+  }
+  __syncwarp();
+  return total;
+}
+
 template <typename T, int TN, int CU, int V, typename Rows>
 __device__ __forceinline__ void tile_spmm(const int32_t* __restrict__ job_offsets,
                                           const int8_t* __restrict__ w_blocks,
@@ -159,57 +218,21 @@ __device__ __forceinline__ void tile_spmm(const int32_t* __restrict__ job_offset
 #pragma unroll
   for (int c = 0; c < EPL; ++c) acc[c] = 0.f;
 
-  // this lane's 16 * WPL counts of row r in job j
-  auto counts = [&](int j, uint4 (&w)[WPL]) {
-    const uint4* src = reinterpret_cast<const uint4*>(
-        w_blocks + ((size_t)j * TN + r) * CU);
-#pragma unroll
-    for (int i = 0; i < WPL; ++i) w[i] = __ldg(src + lane * WPL + i);
-  };
   uint4 next[WPL];
-  if (j_begin < j_end) counts(j_begin, next);
+  if (j_begin < j_end) load_counts<TN, CU>(w_blocks, j_begin, r, lane, next);
   for (int j = j_begin; j < j_end; ++j) {
     uint4 w[WPL];
 #pragma unroll
     for (int i = 0; i < WPL; ++i) w[i] = next[i];
-    if (j + 1 < j_end) counts(j + 1, next);
+    if (j + 1 < j_end) load_counts<TN, CU>(w_blocks, j + 1, r, lane, next);
     const JobRows job = rows.job(j);
 
-    // bit b: this lane's slot lane * SPL + b has a nonzero count
-    uint32_t m = 0;
-#pragma unroll
-    for (int i = 0; i < WPL; ++i)
-      m |= (nonzero4(w[i].x) | nonzero4(w[i].y) << 4 |
-            nonzero4(w[i].z) << 8 | nonzero4(w[i].w) << 12)
-           << (16 * i);
+    uint32_t keep = ~0u;
     if (job.u == nullptr) {  // direct rows at or past n_rows read zero
       const int64_t room = job.n_rows - (job.base + lane * SPL);
-      if (room < SPL) m &= room <= 0 ? 0u : (1u << room) - 1u;
+      if (room < SPL) keep = room <= 0 ? 0u : (1u << room) - 1u;
     }
-    const int n = __popc(m);
-    int end = n;                             // inclusive prefix sum
-#pragma unroll
-    for (int d = 1; d < 32; d *= 2) {
-      const int y = __shfl_up_sync(ALL, end, d);
-      if (lane >= d) end += y;
-    }
-    const int total = __shfl_sync(ALL, end, 31);
-    int pos = end - n;
-#pragma unroll
-    for (int i = 0; i < 4 * WPL; ++i) {
-      const uint32_t word = i % 4 == 0   ? w[i / 4].x
-                            : i % 4 == 1 ? w[i / 4].y
-                            : i % 4 == 2 ? w[i / 4].z
-                                         : w[i / 4].w;
-      uint32_t mi = (m >> (4 * i)) & 0xfu;
-      while (mi != 0) {
-        const int b = __ffs(mi) - 1;
-        mi &= mi - 1;
-        list[pos++] = (uint32_t)(lane * SPL + 4 * i + b) |
-                      ((word >> (8 * b)) & 0xffu) << 16;
-      }
-    }
-    __syncwarp();
+    const int total = list_nonzero(w, keep, lane, list);
 
     for (int e0 = 0; e0 < total; e0 += 32) {
       int src = 0;

@@ -30,9 +30,10 @@
 // traffic (W 41 MB, x 21 MB, out 21 MB, indices), ~25 us at 3.35 TB/s,
 // against 0.25 GFLOP of useful FMAs.  The kernel reads W once but one x
 // row per nonzero count (~0.5 GB, from L2: x fits in it), which sets its
-// pace, ~4x the byte bound; at the full-scale shapes (x of 238 MB, beyond
-// the 50 MB L2; 39.6M counts) those gathers run to ~40 GB of L2 and HBM
-// traffic per pass at F = 256.
+// pace: 0.083 ms, 3.3x the byte bound, on an H100 80GB HBM3 at 700 W
+// (device time per call, chip_smoke.py); at the full-scale shapes (x of
+// 238 MB, beyond the 50 MB L2; 39.6M counts) those gathers run to ~40 GB
+// of L2 and HBM traffic per pass at F = 256.
 
 #include "count_block.cuh"
 

@@ -22,47 +22,64 @@
 //
 // Design.  Every kernel walks its tile's jobs in a loop inside the block
 // (Hopper blocks run in any order; there is no sequential grid to carry
-// a running sum).  Two kinds of block cover the three kernels:
+// a running sum).
 //
-// * accumulate blocks (K4; K6's dz): one block per (tile, head, 64-column
-//   slice).  Per step the 256 threads rebuild a (TN x 32) probability
-//   slice from W and the staged per-slot scalars, gather the 32 matching
-//   rows through u_senders into shared memory, and run fp32 FMAs into an
-//   8 x 4 register block each (K1's loop).  K4 needs the row max first:
-//   a first pass over the tile's jobs computes m_r exactly, the second
-//   accumulates with it, so no rescaling is needed (the TPU kernel's
-//   online softmax gives the same m and l up to rounding).  Each column
-//   slice recomputes the cheap score block: 1 exp per slot against 64
-//   FMAs.
-// * SDDMM blocks (K5; K6's dsrc): one block per (tile, quarter of the
-//   slots of every job).  dalpha for a (TN x 64) slot block is an NT
-//   product over the feature depth, staged 32 columns at a time; the
-//   epilogue forms ds and reduces it over the slots into per-row sums.
-//   The four quarters of a tile add their row sums with fp32 atomics
-//   into an output the caller zeroes, so the order of those four
-//   additions changes from run to run (rounding only).
+// * K4 (accumulate blocks): one block per (tile, head, 64-column slice).
+//   Per step the 256 threads rebuild a (TN x 32) probability slice from W
+//   and the staged per-slot scalars, gather the 32 matching rows through
+//   u_senders into shared memory, and run fp32 FMAs into an 8 x 4
+//   register block each.  It needs the row max first: a first pass over
+//   the tile's jobs computes m_r exactly, the second accumulates with it,
+//   so no rescaling is needed (the TPU kernel's online softmax gives the
+//   same m and l up to rounding).
+// * K5 (SDDMM blocks): one block per (tile, quarter of the slots of every
+//   job).  dalpha for a (TN x 64) slot block is an NT product over the
+//   feature depth, staged 32 columns at a time; the epilogue forms ds and
+//   reduces it over the slots into per-row sums.  The four quarters of a
+//   tile add their row sums with fp32 atomics into an output the caller
+//   zeroes, so the order of those four additions changes from run to run
+//   (rounding only).
+// * K6 walks only the nonzero counts, with K1's list step
+//   (count_block.cuh): one warp owns one row s of a transpose tile and
+//   keeps z_s's 256-column chunk in registers.  For each job it reads the
+//   row's CU counts once, lists the nonzero (slot, count) entries, then
+//   takes them 32 at a time: each lane loads one entry's receiver r and
+//   its scalars (dst_r, m_r, l_r, c_r) and forms A and
+//   coef = A * lrelu'(raw) with one exp; then every entry's G_r chunk is
+//   read by all lanes across the columns, four rows in flight, and
+//   dz += A * G_r and the lane's partial dot z_s . G_r are fp32 FMAs
+//   (not TF32).  ds = coef * (z_s . G_r - c_r) is linear in the dot, so
+//   each lane keeps sum_r coef * (its columns of z_s . G_r) and
+//   sum_r coef * c_r over its own entries, and one warp sum per row gives
+//   dsrc_s: no warp reduction per entry.  Above 256 columns the warp
+//   walks the jobs once per chunk (rebuilding the lists and the scalars
+//   costs less than keeping every chunk of z_s and dz in registers or
+//   shared memory at any width).  dz and dsrc are each stored once, every
+//   row written (empty rows and tiles with 0): no atomics, no zeroed
+//   output, and two launches give the same bits.
 //
-// K6 is one launch with both kinds of block: blockIdx.y < n_slices are
-// dz column slices, the rest are dsrc quarters.
-//
-// What bounds it on an H100: the dense blocks, as in K1.  At the GAT
-// slice's batch (54 tiles, 136 jobs, W 1.3% dense) K4 at H=2, O=256 does
-// 2*136*128*1024*512 = 18 GFLOP of FMA on the dense blocks where the
-// useful work is ~0.23 GFLOP and the bytes the function must move are
-// ~40 MB (~12 us): bound by its own wasted operations.  The TPU's bf16
-// probability matrix and hi/lo split, the lane-broadcast m/l/dst arrays
-// and the materialised u_rows gathers are not carried over.
+// What bounds it on an H100.  K4 and K5 by the dense blocks they
+// multiply: at the GAT slice's batch (54 tiles, 136 jobs, W 1.3% dense)
+// K4 at H=2, O=256 does 2*136*128*1024*512 = 18 GFLOP of FMA on the
+// dense blocks where the useful work is ~0.23 GFLOP and the bytes the
+// function must move are ~40 MB (~12 us).  K6 by its gathers: W of the
+// transpose jobs (~18 MB) is read once, but each of ~0.29M nonzero
+// counts reads a 1 KB G row (O = 256, fp32), mostly from L2.  The TPU's
+// bf16 probability matrix and hi/lo split, the lane-broadcast m/l/dst
+// arrays and the materialised u_rows gathers are not carried over.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "count_block.cuh"
 
 namespace {
 
 constexpr int TN = 128;       // destination rows per tile
 constexpr int CU = 1024;      // unique-sender slots per job
 constexpr int THREADS = 256;
-constexpr int FT = 64;        // feature columns per accumulate block
+constexpr int FT = 64;        // feature columns per K4 block
 constexpr int KC = 32;        // slots staged per accumulate step
 constexpr int RPT = 8;        // register rows per thread (16 row groups)
 constexpr int CPT = 4;        // register columns per thread (16 groups)
@@ -79,10 +96,8 @@ static_assert((TN * DK / 4) % THREADS == 0 && (KS * DK / 4) % THREADS == 0,
               "SDDMM staging split evenly");
 static_assert(SLOTS % KS == 0, "SDDMM steps");
 
-// shared memory (floats) of the two block kinds of K6
-constexpr int ACC_SMEM = 3 * CU + KC * TN + KC * FT;
-constexpr int SDDMM_SMEM = 4 * SLOTS + DK * TN + DK * KS + 4 * TN;
-constexpr int B2_SMEM = ACC_SMEM > SDDMM_SMEM ? ACC_SMEM : SDDMM_SMEM;
+// shared memory (floats) of a K5 block
+constexpr int SDDMM_SMEM = SLOTS + DK * TN + DK * KS + 4 * TN;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -244,30 +259,26 @@ gat_fwd_kernel(const int32_t* __restrict__ job_offsets,
 }
 
 // ---------------------------------------------------------------------------
-// SDDMM block (K5, K6's dsrc): rowsum[tile*TN + r] += sum over this
-// block's quarter q of every job's slots of
-//   A(r, u) * (rowmat[r] . slotmat[u] - c) * lrelu'(row_score[r] + slot_score[u])
-// with m, l, c per row (ROW_STATS, row order) or per slot (node order,
-// gathered through u_senders).
+// SDDMM block (K5): rowsum[tile*TN + r] += sum over this block's quarter
+// q of every job's slots of
+//   A(r, u) * (rowmat[r] . slotmat[u] - c_r) * lrelu'(row_score[r] + slot_score[u])
+// with m, l, c per row (row order).
 // ---------------------------------------------------------------------------
-template <typename TR, typename TS, bool ROW_STATS>
+template <typename TS>
 __device__ __forceinline__ void sddmm_rowsum(
     const int32_t* __restrict__ job_offsets,
     const int8_t* __restrict__ w_blocks,
-    const int32_t* __restrict__ u_senders, const TR* __restrict__ rowmat,
+    const int32_t* __restrict__ u_senders, const float* __restrict__ rowmat,
     const TS* __restrict__ slotmat, int dcols,
     const float* __restrict__ row_score, const float* __restrict__ slot_score,
     const float* __restrict__ m, const float* __restrict__ l,
     const float* __restrict__ c, float* __restrict__ rowsum, int tile, int q,
     float slope, float* smem) {
   float* sc_u = smem;                // SLOTS slot scores
-  float* m_u = sc_u + SLOTS;         // SLOTS (per-slot stats)
-  float* l_u = m_u + SLOTS;
-  float* c_u = l_u + SLOTS;
-  float* rs = c_u + SLOTS;           // DK x TN row features, transposed
+  float* rs = sc_u + SLOTS;          // DK x TN row features, transposed
   float* ss = rs + DK * TN;          // DK x KS slot features, transposed
   float* r_sc = ss + DK * KS;        // TN row scores
-  float* r_m = r_sc + TN;            // TN (per-row stats)
+  float* r_m = r_sc + TN;            // TN row stats
   float* r_l = r_m + TN;
   float* r_c = r_l + TN;
 
@@ -276,11 +287,9 @@ __device__ __forceinline__ void sddmm_rowsum(
   const size_t row0 = (size_t)tile * TN;
   if (tid < TN) {
     r_sc[tid] = row_score[row0 + tid];
-    if (ROW_STATS) {
-      r_m[tid] = m[row0 + tid];
-      r_l[tid] = l[row0 + tid];
-      r_c[tid] = c[row0 + tid];
-    }
+    r_m[tid] = m[row0 + tid];
+    r_l[tid] = l[row0 + tid];
+    r_c[tid] = c[row0 + tid];
   }
   float racc[RPT];
 #pragma unroll
@@ -292,15 +301,8 @@ __device__ __forceinline__ void sddmm_rowsum(
     const int32_t* uj = u_senders + (size_t)j * CU + q * SLOTS;
     const int8_t* wj = w_blocks + (size_t)j * TN * CU + q * SLOTS;
     __syncthreads();
-    for (int s = tid; s < SLOTS; s += THREADS) {
-      const int64_t node = __ldg(uj + s);
-      sc_u[s] = slot_score[node];
-      if (!ROW_STATS) {
-        m_u[s] = m[node];
-        l_u[s] = l[node];
-        c_u[s] = c[node];
-      }
-    }
+    for (int s = tid; s < SLOTS; s += THREADS)
+      sc_u[s] = slot_score[__ldg(uj + s)];
     __syncthreads();
     for (int k0 = 0; k0 < SLOTS; k0 += KS) {
       float acc[RPT][CPT];
@@ -316,7 +318,7 @@ __device__ __forceinline__ void sddmm_rowsum(
           const int idx = p * THREADS + tid;
           const int rr = idx % TN;
           const int dq = (idx / TN) * 4;
-          const TR* src_p = rowmat + (row0 + rr) * dcols + d0 + dq;
+          const float* src_p = rowmat + (row0 + rr) * dcols + d0 + dq;
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             rs[(dq + e) * TN + rr] =
@@ -369,12 +371,9 @@ __device__ __forceinline__ void sddmm_rowsum(
             const float raw = r_sc[rr] + sc_u[s];
             const float e = lrelu(raw, slope);
             const float gp = raw > 0.f ? 1.f : slope;
-            const float mm = ROW_STATS ? r_m[rr] : m_u[s];
-            const float ll = ROW_STATS ? r_l[rr] : l_u[s];
-            const float cv = ROW_STATS ? r_c[rr] : c_u[s];
-            const float A =
-                (float)wq[cc] * expf(fminf(e - mm, 0.f)) / fmaxf(ll, 1e-20f);
-            part += A * (acc[i][cc] - cv) * gp;
+            const float A = (float)wq[cc] * expf(fminf(e - r_m[rr], 0.f)) /
+                            fmaxf(r_l[rr], 1e-20f);
+            part += A * (acc[i][cc] - r_c[rr]) * gp;
           }
         }
         part += __shfl_xor_sync(0xffffffffu, part, 8);
@@ -410,20 +409,21 @@ gat_bwd_b1_kernel(const int32_t* __restrict__ job_offsets,
                   const float* __restrict__ c_rows, float* __restrict__ ddst,
                   int dcols, float slope) {
   __shared__ __align__(16) float smem[SDDMM_SMEM];
-  sddmm_rowsum<float, T, true>(job_offsets, w_blocks, u_senders, g_rows, z,
-                               dcols, dst_rows, src, m_rows, l_rows, c_rows,
-                               ddst, blockIdx.x, blockIdx.y, slope, smem);
+  sddmm_rowsum<T>(job_offsets, w_blocks, u_senders, g_rows, z, dcols,
+                  dst_rows, src, m_rows, l_rows, c_rows, ddst, blockIdx.x,
+                  blockIdx.y, slope, smem);
 }
 
 // ---------------------------------------------------------------------------
-// K6: backward B2 on the transpose layout.  grid (num_tiles,
-// n_slices + SPLIT): blockIdx.y < n_slices accumulates a 64-column slice
-// of dz, the rest are the dsrc quarters.
+// K6: backward B2 on the transpose layout.  num_tiles * TN / WARPS blocks
+// of count_block::THREADS, one warp per row s (the blocks of a tile are
+// neighbours in launch order).
 // z_rows (tiles*TN, D) in T; src_rows (tiles*TN) f32; g (N, D) f32;
-// dst, m, l, c (N) f32; dz (tiles*TN, D) in T; dsrc (tiles*TN), zeroed.
+// dst, m, l, c (N) f32; dz (tiles*TN, D) in T; dsrc (tiles*TN) f32.
+// Every element of dz and dsrc is written.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int V>
+__global__ void __launch_bounds__(count_block::THREADS)
 gat_bwd_b2_kernel(const int32_t* __restrict__ job_offsets,
                   const int8_t* __restrict__ w_blocks,
                   const int32_t* __restrict__ u_senders,
@@ -432,78 +432,122 @@ gat_bwd_b2_kernel(const int32_t* __restrict__ job_offsets,
                   const float* __restrict__ g, const float* __restrict__ dst,
                   const float* __restrict__ m, const float* __restrict__ l,
                   const float* __restrict__ c, T* __restrict__ dz,
-                  float* __restrict__ dsrc, int dcols, int n_slices,
-                  float slope) {
-  __shared__ __align__(16) float smem[B2_SMEM];
-  const int tile = blockIdx.x;
-  if ((int)blockIdx.y >= n_slices) {
-    sddmm_rowsum<T, float, false>(job_offsets, w_blocks, u_senders, z_rows, g,
-                                  dcols, src_rows, dst, m, l, c, dsrc, tile,
-                                  blockIdx.y - n_slices, slope, smem);
-    return;
-  }
-  float* dst_u = smem;               // CU per-slot receiver scalars
-  float* m_u = dst_u + CU;
-  float* l_u = m_u + CU;
-  float* ps = l_u + CU;              // KC x TN probabilities, transposed
-  float* zs = ps + KC * TN;          // KC x FT gathered G rows
+                  float* __restrict__ dsrc, int dcols, float slope) {
+  constexpr unsigned ALL = 0xffffffffu;
+  constexpr int WARPS = count_block::WARPS;
+  constexpr int CHUNK = count_block::FT;   // columns per pass over the jobs
+  constexpr int EPL = count_block::EPL;    // of them per lane
+  constexpr int LOADS = EPL / V;           // row loads per entry and lane
+  constexpr int WPL = CU / 32 / 16;        // 16-byte count loads per lane
+  static_assert(TN % WARPS == 0, "layout");
 
-  const int f0 = blockIdx.y * FT;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int r = tid >> 1, half = tid & 1;
-  const float sr = src_rows[(size_t)tile * TN + r];
-  float acc[RPT][CPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) acc[i][cc] = 0.f;
+  __shared__ uint32_t lists[WARPS][CU];    // (slot | count << 16) entries
 
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const size_t row = (size_t)blockIdx.x * WARPS + warp;
+  const int tile = (int)(row / TN);
+  const int r = (int)(row % TN);
   const int j_begin = job_offsets[tile];
   const int j_end = job_offsets[tile + 1];
-  for (int j = j_begin; j < j_end; ++j) {
-    const int32_t* uj = u_senders + (size_t)j * CU;
-    const int8_t* wj = w_blocks + (size_t)j * TN * CU;
-    __syncthreads();
-    for (int s = tid; s < CU; s += THREADS) {
-      const int64_t node = __ldg(uj + s);
-      dst_u[s] = dst[node];
-      m_u[s] = m[node];
-      l_u[s] = l[node];
-    }
-    __syncthreads();
-    for (int k0 = 0; k0 < CU; k0 += KC) {
-      {
-        const int4 v = __ldg(
-            reinterpret_cast<const int4*>(wj + (size_t)r * CU + k0 + half * 16));
-        const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+  const float sr = src_rows[row];
+  uint32_t* list = lists[warp];
+
+  float ds_dot = 0.f;  // sum over this lane's columns and every entry of
+                       // coef * z_s[col] * G_r[col]
+  float ds_c = 0.f;    // sum over this lane's entries of coef * c_r
+  for (int f0 = 0; f0 < dcols; f0 += CHUNK) {
+    const int wf = min(CHUNK, dcols - f0);
+    bool has[LOADS];
+    float zs[EPL], acc[EPL];
 #pragma unroll
-        for (int q = 0; q < 16; ++q) {
-          const int cc = half * 16 + q;
-          const int s = k0 + cc;
-          float p = 0.f;
-          if (b[q] > 0)
-            p = (float)b[q] *
-                expf(fminf(lrelu(sr + dst_u[s], slope) - m_u[s], 0.f)) /
-                fmaxf(l_u[s], 1e-20f);
-          ps[cc * TN + r] = p;
+    for (int h = 0; h < LOADS; ++h) {
+      has[h] = h * 32 * V + lane * V < wf;
+      float v[V];
+      if (has[h])
+        count_block::load<V>(z_rows + row * dcols + f0 + h * 32 * V +
+                                 lane * V, v);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        zs[h * V + k] = has[h] ? v[k] : 0.f;
+        acc[h * V + k] = 0.f;
+      }
+    }
+    const float* gs = g + f0 + lane * V;
+
+    uint4 next[WPL];
+    if (j_begin < j_end)
+      count_block::load_counts<TN, CU>(w_blocks, j_begin, r, lane, next);
+    for (int j = j_begin; j < j_end; ++j) {
+      uint4 w[WPL];
+#pragma unroll
+      for (int i = 0; i < WPL; ++i) w[i] = next[i];
+      if (j + 1 < j_end)
+        count_block::load_counts<TN, CU>(w_blocks, j + 1, r, lane, next);
+      const int total = count_block::list_nonzero(w, ~0u, lane, list);
+      const int32_t* uj = u_senders + (size_t)j * CU;
+
+      for (int e0 = 0; e0 < total; e0 += 32) {
+        // lane e: entry e0 + e's receiver, A and coef = A * lrelu'(raw)
+        int node = 0;
+        float a = 0.f, coef = 0.f;
+        if (e0 + lane < total) {
+          const uint32_t entry = list[e0 + lane];
+          node = __ldg(uj + (entry & 0xffff));
+          const float raw = sr + __ldg(dst + node);
+          a = (float)(entry >> 16) *
+              expf(fminf(lrelu(raw, slope) - __ldg(m + node), 0.f)) /
+              fmaxf(__ldg(l + node), 1e-20f);
+          coef = raw > 0.f ? a : a * slope;
+          if (f0 == 0) ds_c = fmaf(coef, __ldg(c + node), ds_c);
+        }
+        const int batch = min(32, total - e0);
+#pragma unroll 4
+        for (int e = 0; e < batch; ++e) {
+          const float* p = gs + (int64_t)__shfl_sync(ALL, node, e) * dcols;
+          const float ae = __shfl_sync(ALL, a, e);
+          const float ce = __shfl_sync(ALL, coef, e);
+          float dot = 0.f;
+#pragma unroll
+          for (int h = 0; h < LOADS; ++h) {
+            if (!has[h]) continue;
+            float v[V];
+            count_block::load<V>(p + h * 32 * V, v);
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              acc[h * V + k] = fmaf(ae, v[k], acc[h * V + k]);
+              dot = fmaf(zs[h * V + k], v[k], dot);
+            }
+          }
+          ds_dot = fmaf(ce, dot, ds_dot);
         }
       }
-      stage_rows(zs, g, (int64_t)dcols, 0, dcols, uj + k0, f0, tid);
-      __syncthreads();
-      fma_chunk(ps, zs, acc, tx, ty);
-      __syncthreads();
+      __syncwarp();
     }
-  }
+
+    T* o = dz + row * dcols + f0 + lane * V;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const size_t orow = (size_t)tile * TN + ty * RPT + i;
+    for (int h = 0; h < LOADS; ++h)
 #pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      const int col = f0 + tx * CPT + cc;
-      if (col < dcols) store_val(dz + orow * dcols + col, acc[i][cc]);
-    }
+      for (int k = 0; k < V; ++k)
+        if (has[h]) store_val(o + h * 32 * V + k, acc[h * V + k]);
   }
+  float t = ds_dot - ds_c;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(ALL, t, o);
+  if (lane == 0) dsrc[row] = t;
+}
+
+// The widest V in {4, 2, 1} that divides dcols and to which g (f32) and
+// z_rows and dz (T) are aligned.
+template <typename T>
+int b2_vec(int dcols, const void* g, const void* z_rows, const void* dz) {
+  const uintptr_t rows = (uintptr_t)z_rows | (uintptr_t)dz;
+  for (int v = 4; v > 1; v /= 2)
+    if (dcols % v == 0 && (uintptr_t)g % (v * sizeof(float)) == 0 &&
+        rows % (v * sizeof(T)) == 0)
+      return v;
+  return 1;
 }
 
 template <typename T>
@@ -552,17 +596,25 @@ int launch_b2(const void* job_offsets, const void* w_blocks,
               const void* c, void* dz, void* dsrc, int num_tiles, int dcols,
               float slope, void* stream) {
   if (num_tiles > 0 && dcols > 0) {
-    const int n_slices = (dcols + FT - 1) / FT;
-    const dim3 grid(num_tiles, n_slices + SPLIT);
-    gat_bwd_b2_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        static_cast<const int32_t*>(job_offsets),
-        static_cast<const int8_t*>(w_blocks),
-        static_cast<const int32_t*>(u_senders), static_cast<const T*>(z_rows),
-        static_cast<const float*>(src_rows), static_cast<const float*>(g),
-        static_cast<const float*>(dst), static_cast<const float*>(m),
-        static_cast<const float*>(l), static_cast<const float*>(c),
-        static_cast<T*>(dz), static_cast<float*>(dsrc), dcols, n_slices,
-        slope);
+    const int blocks = num_tiles * (TN / count_block::WARPS);
+    auto go = [&](auto kernel) {
+      kernel<<<blocks, count_block::THREADS, 0, (cudaStream_t)stream>>>(
+          static_cast<const int32_t*>(job_offsets),
+          static_cast<const int8_t*>(w_blocks),
+          static_cast<const int32_t*>(u_senders),
+          static_cast<const T*>(z_rows), static_cast<const float*>(src_rows),
+          static_cast<const float*>(g), static_cast<const float*>(dst),
+          static_cast<const float*>(m), static_cast<const float*>(l),
+          static_cast<const float*>(c), static_cast<T*>(dz),
+          static_cast<float*>(dsrc), dcols, slope);
+    };
+    const int v = b2_vec<T>(dcols, g, z_rows, dz);
+    if (v == 4)
+      go(gat_bwd_b2_kernel<T, 4>);
+    else if (v == 2)
+      go(gat_bwd_b2_kernel<T, 2>);
+    else
+      go(gat_bwd_b2_kernel<T, 1>);
   }
   return (int)cudaGetLastError();
 }
@@ -570,8 +622,9 @@ int launch_b2(const void* job_offsets, const void* w_blocks,
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Outputs are allocated by the
-// caller; ddst and dsrc must be zeroed (the SDDMM quarters add into
-// them).  Each function returns cudaGetLastError().
+// caller; ddst must be zeroed (K5's SDDMM quarters add into it), while K6
+// writes every element of dz and dsrc.  Each function returns
+// cudaGetLastError().
 #define GAT_DEDUP_API(SUFFIX, T)                                              \
   extern "C" int gat_fwd_##SUFFIX(                                            \
       const void* job_offsets, const void* w_blocks, const void* u_senders,   \

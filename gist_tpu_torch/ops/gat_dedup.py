@@ -328,8 +328,9 @@ def gat_bwd_b2(job_offsets, w_blocks, u_senders, z_rows, src_rows, g, dst,
         "src_rows": (src_rows, (rows,), _F32), "g": (g, (n, d), _F32),
         "dst": (dst, (n,), _F32), "m": (m, (n,), _F32),
         "l": (l, (n,), _F32), "c": (c, (n,), _F32)}, dev)
+    # K6 writes every element of both (no atomics, no zeroed output)
     dz = torch.empty((rows, d), dtype=z_rows.dtype, device=dev)
-    dsrc = torch.zeros(rows, dtype=torch.float32, device=dev)
+    dsrc = torch.empty(rows, dtype=torch.float32, device=dev)
     fn = getattr(_load(), f"gat_bwd_b2_{_suffix(z_rows.dtype)}")
     err = fn(job_offsets.data_ptr(), w_blocks.data_ptr(),
              u_senders.data_ptr(), z_rows.data_ptr(), src_rows.data_ptr(),

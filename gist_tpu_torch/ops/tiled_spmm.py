@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple
+
 import torch
 
 from gist_tpu_torch.graph import TiledCSR
@@ -30,11 +32,65 @@ SOURCE = os.path.join(os.path.dirname(dedup_spmm.SOURCE), "tiled_spmm.cu")
 launches = 0
 _lib = None
 
+# the kernel's instances (csrc/tiled_spmm.cu): lanes per group, and at
+# most MAX_ACC fp32 accumulators a lane (per_lane * vec)
+GROUPS = (16, 8)
+MAX_ACC = 8
+
+
+class Plan(NamedTuple):
+    """A K3 launch plan: the lanes of a warp in groups of ``group``, each
+    lane holding ``per_lane`` vectors of ``vec`` elements of a row, so a
+    group covers ``span`` columns of one block column.  ``rows``: each
+    group owns a destination row (32 / group rows a warp); otherwise one
+    warp owns a row and its groups take successive slots of it."""
+    rows: bool
+    group: int
+    per_lane: int
+    vec: int
+
+    @property
+    def span(self) -> int:
+        return self.group * self.per_lane * self.vec
+
+    def grid(self, n_rows: int, f: int) -> tuple:
+        """(blocks over the rows, block columns) of a launch; a block
+        holds 8 warps (``tiled_rows::WARPS``)."""
+        rows_per_block = 8 * (32 // self.group if self.rows else 1)
+        return (-(-n_rows // rows_per_block), -(-f // self.span))
+
+
+def vec_width(f: int, item: int, *ptrs: int) -> int:
+    """The widest vector in {4, 2, 1} elements that divides ``f`` and to
+    which every address in ``ptrs`` is aligned (elements of ``item``
+    bytes)."""
+    for v in (4, 2):
+        if f % v == 0 and all(p % (v * item) == 0 for p in ptrs):
+            return v
+    return 1
+
+
+def launch_plan(f: int, vec: int) -> Plan:
+    """The plan K3 launches at F = ``f`` with ``vec``-element loads:
+    groups of 16 lanes (8 where a row has at most 8 vectors), each lane
+    holding the fewest vectors that cover the row, at most ``MAX_ACC``
+    accumulators; one warp per row with its groups on successive slots
+    where that covers the row in one block column, else each group on
+    its own row.  Chosen by measurement on an H100 (``chip_smoke.py``
+    phase ``k3_plans``, which compares both modes with groups of 8 and
+    16 lanes; PERF.md): at F=41 and 47 the 16-lane edges plan was the
+    fastest, at F=256 the rows plans (two or four block columns)."""
+    nv = -(-f // vec)
+    group = 16 if nv > 8 else 8
+    per_lane = min(-(-nv // group), MAX_ACC // vec)
+    return Plan(nv > group * per_lane, group, per_lane, vec)
+
 
 def _load():
     global _lib
     if _lib is None:
-        sig = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        sig = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+               + [ctypes.c_void_p])
         _lib = dedup_spmm.load_library(SOURCE, {"tiled_spmm_f32": sig,
                                                 "tiled_spmm_bf16": sig})
     return _lib
@@ -97,11 +153,20 @@ def check_layout(name: str, t: TiledCSR, dev: torch.device,
 def tiled_spmm(t: TiledCSR, x: torch.Tensor) -> torch.Tensor:
     """(num_tiles * TN, F) aggregation in x's dtype.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take the
-    plain version; no other device is accepted."""
-    global launches
+    CUDA tensors launch the kernel with :func:`launch_plan`'s plan (or
+    raise); CPU tensors take the plain version; no other device is
+    accepted."""
     if x.device.type == "cpu":
         return tiled_spmm_reference(t, x)
+    return run_plan(t, x, None)
+
+
+def run_plan(t: TiledCSR, x: torch.Tensor, plan) -> torch.Tensor:
+    """One kernel launch on CUDA tensors with ``plan`` (None:
+    :func:`launch_plan`'s); a plan is a :class:`Plan` whose ``vec`` x and
+    F allow.  The path calls it through :func:`tiled_spmm`; a measurement
+    may pass another plan to compare it."""
+    global launches
     if x.device.type != "cuda":
         raise ValueError(f"tiled_spmm runs on cuda or cpu, not {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -110,16 +175,24 @@ def tiled_spmm(t: TiledCSR, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"tiled_spmm expects a contiguous (N, F) input, got "
                          f"{tuple(x.shape)}")
     check_layout("tiled_spmm", t, x.device)
-    n_rows = t.num_tiles * t.tile_rows
-    out = torch.empty((n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    n_rows, f = t.num_tiles * t.tile_rows, x.shape[1]
+    out = torch.empty((n_rows, f), dtype=x.dtype, device=x.device)
+    item = x.element_size()
+    vec = vec_width(f, item, x.data_ptr(), out.data_ptr())
+    if plan is None:
+        plan = launch_plan(f, vec)
+    elif vec % plan.vec:
+        raise ValueError(f"tiled_spmm: plan {plan} needs {plan.vec}-element "
+                         f"alignment; F and x allow {vec}")
     fn = _load().tiled_spmm_f32 if x.dtype == torch.float32 else \
         _load().tiled_spmm_bf16
     err = fn(t.tile_offsets.data_ptr(), t.senders.data_ptr(),
              t.receivers.data_ptr(), x.data_ptr(), out.data_ptr(), n_rows,
-             t.tile_rows, x.shape[1],
-             torch.cuda.current_stream(x.device).cuda_stream)
+             t.tile_rows, f, int(plan.rows), plan.group, plan.per_lane,
+             plan.vec, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"tiled_spmm launch failed: CUDA error {err}")
+        raise RuntimeError(f"tiled_spmm launch failed with plan {plan}: "
+                           f"CUDA error {err}")
     launches += 1
     return out
 

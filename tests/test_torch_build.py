@@ -13,8 +13,9 @@ from gist_tpu_torch.ops import (dedup_spmm, gat_dedup, gat_tiled, split_spmm,
 
 MODULES = {"K1": dedup_spmm, "K2": split_spmm, "K3": tiled_spmm,
            "K4-K6": gat_dedup, "K7-K9": gat_tiled}
-# the kernels compiled with the count-block walk
-COUNT_BLOCK = {"K1", "K2"}
+# the kernels compiled with the count-block walk (K1, K2) or its list
+# step (K6, in the K4-K6 library)
+COUNT_BLOCK = {"K1", "K2", "K4-K6"}
 CSRC = os.path.dirname(dedup_spmm.SOURCE)
 
 
@@ -43,8 +44,8 @@ def test_library_named_by_its_sources(name):
 
 @pytest.mark.parametrize("name", sorted(MODULES))
 def test_header_edit_renames_only_its_users(tmp_path, name):
-    """One byte of ``count_block.cuh`` changes K1's and K2's library
-    names and no other kernel's."""
+    """One byte of ``count_block.cuh`` changes the library names of K1,
+    K2 and K4-K6 and no other kernel's."""
     library = dedup_spmm.library_path(MODULES[name].SOURCE)
     csrc = _copy_csrc(tmp_path)
     source = str(csrc / os.path.basename(MODULES[name].SOURCE))
@@ -73,3 +74,21 @@ def test_launch_shape_matches_header():
         assert found and int(found.group(1)) == value, name
     assert dedup_spmm.launch_grid(159, 256) == (1, 16, 159)
     assert dedup_spmm.launch_grid(7, 602, 64) == (3, 8, 7)
+
+
+@pytest.mark.parametrize("name", ["K1", "K2", "K4-K6"])
+def test_list_step_is_shared(name):
+    """K1, K2 and K6 build their lists of nonzero counts with the one
+    device function of ``count_block.cuh``; none keeps a copy of it."""
+    with open(os.path.join(CSRC, "count_block.cuh"), encoding="utf-8") as fh:
+        header = fh.read()
+    assert header.count("int list_nonzero(") == 1
+    sources = dedup_spmm._sources(MODULES[name].SOURCE)
+    assert os.path.join(CSRC, "count_block.cuh") in sources
+    with open(MODULES[name].SOURCE, encoding="utf-8") as fh:
+        text = fh.read()
+    assert "nonzero4(" not in text and "__shfl_up_sync" not in text
+    if name == "K4-K6":
+        assert "count_block::list_nonzero(" in text
+    else:
+        assert "count_block::tile_spmm<" in text

@@ -183,8 +183,8 @@ def _gat_inputs(d, n, heads, o, dtype, cuda, rng):
 def test_gat_kernels_match_plain(cuda, case, dtype, heads, o):
     """K4, then K5 and K6 for head 0 on the forward's m and l, each
     against its plain version on the same inputs: 1e-5 (K4) and 1e-4
-    (K5, K6; their row sums add four partial sums with atomics) relative
-    to the plain result's max in fp32, 1e-2 in bf16."""
+    (K5, whose row sums add four partial sums with atomics, and K6)
+    relative to the plain result's max in fp32, 1e-2 in bf16."""
     rng = np.random.default_rng(0)
     s, r, n = _edges(case, rng)
     d = _build_dedup_tiles(s, r, n, reorder=False)
@@ -234,6 +234,60 @@ def test_gat_kernels_match_plain(cuda, case, dtype, heads, o):
     assert _rel(dz, wz) <= tol_b and _rel(dsrc, wsrc) <= tol_b
     assert (G.launches_fwd, G.launches_b1, G.launches_b2) == tuple(
         x + 1 for x in before)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype,o", [(torch.float32, 1),
+                                     (torch.float32, 37),
+                                     (torch.float32, 41),
+                                     (torch.float32, 130),
+                                     (torch.float32, 257),
+                                     (torch.float32, 602),
+                                     (torch.bfloat16, 64)])
+def test_gat_bwd_b2_matches_plain(cuda, case, dtype, o):
+    """K6 on the transpose layout (padding jobs, empty tiles) against its
+    plain version on the forward's m and l: 1e-4 relative to the plain
+    result's max in fp32, 1e-2 in bf16; two launches give the same bits;
+    every element of dz and dsrc is written (the wrapper allocates them
+    with ``torch.empty``: blocks just freed full of NaN come back)."""
+    rng = np.random.default_rng(5)
+    s, r, n = _edges(case, rng)
+    if case == "empty_tiles":   # senders in [0, 100): the transpose
+        s, r = r, s             # layout's tiles past 0 hold no row
+    d = _build_dedup_tiles(s, r, n, reorder=False).to(cuda)
+    dt = _build_dedup_tiles(r, s, n, reorder=False)
+    dt = pad_dedup_tiles(dt, int(dt.w_blocks.shape[0]) + 3,
+                         dt.max_jobs + 1).to(cuda)
+    z, src, dst_rows = _gat_inputs(d, n, 1, o, dtype, cuda, rng)
+    lay = (d.job_offsets, d.w_blocks, d.u_senders)
+    out, m, l = G.gat_fwd(*lay, z, src, dst_rows, 0.2)
+    rows_t = dt.num_tiles * 128
+    z_rows = torch.zeros((rows_t, o), dtype=dtype, device=cuda)
+    z_rows[:n] = z[:, 0]
+    src_rows = torch.zeros(rows_t, device=cuda)
+    src_rows[:n] = src[:, 0]
+    g = torch.from_numpy(rng.standard_normal((n, o)).astype(
+        np.float32)).to(cuda)
+    c = (out[:n, 0].float() * g).sum(1)
+    args = (dt.job_offsets, dt.w_blocks, dt.u_senders, z_rows, src_rows, g,
+            dst_rows[:n, 0].contiguous(), m[:n, 0].contiguous(),
+            l[:n, 0].contiguous(), c, 0.2)
+    torch.cuda.synchronize()
+    for shape, kind in (((rows_t, o), dtype), ((rows_t,), torch.float32)):
+        torch.full(shape, float("nan"), dtype=kind, device=cuda)
+    before = G.launches_b2
+    dz, dsrc = G.gat_bwd_b2(*args)
+    torch.cuda.synchronize()
+    assert G.launches_b2 == before + 1
+    assert torch.isfinite(dz.float()).all() and torch.isfinite(dsrc).all()
+    dz2, dsrc2 = G.gat_bwd_b2(*args)
+    assert torch.equal(dz, dz2) and torch.equal(dsrc, dsrc2)
+    wz, wsrc = G.gat_bwd_b2_reference(*args)
+    assert dz.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert _rel(dz, wz) <= tol and _rel(dsrc, wsrc) <= tol
+    if case == "empty_tiles":
+        assert torch.all(dz[128:] == 0) and torch.all(dsrc[128:] == 0)
 
 
 @pytest.mark.parametrize("heads,o", [(2, 24), (3, 8)])
@@ -453,15 +507,21 @@ def _v1_graph(case, rng):
 V1_CASES = ["several_tiles", "empty_tiles", "multigraph"]
 
 
+# K3's widths: narrow rows that fill groups of 8 or 16 lanes (1, 7, 16,
+# 41, 47, 63), the edges of those plans (64, 65), one warp over 256
+# columns and several block columns (602)
+K3_WIDTHS = [(torch.float32, f) for f in (1, 7, 16, 41, 47, 63, 64, 65, 256,
+                                          602)] + \
+    [(torch.bfloat16, 41), (torch.bfloat16, 256)]
+
+
 @pytest.mark.parametrize("case", V1_CASES)
-@pytest.mark.parametrize("dtype,f", [(torch.float32, 41),
-                                     (torch.float32, 256),
-                                     (torch.float32, 602),
-                                     (torch.bfloat16, 256)])
+@pytest.mark.parametrize("dtype,f", K3_WIDTHS)
 def test_tiled_spmm_matches_plain(cuda, case, dtype, f):
-    """K3 forward (``tiled``) and transpose (``tiled_t``) against its
-    plain walk: 1e-5 relative to the plain result's max in fp32, 1e-2 in
-    bf16; in fp32 also against the dense product."""
+    """K3 forward (``tiled``) and transpose (``tiled_t``) with its chosen
+    plan against its plain walk: 1e-5 relative to the plain result's max
+    in fp32, 1e-2 in bf16; in fp32 also against the dense product; two
+    launches give the same bits (no atomics)."""
     from gist_tpu_torch.ops import tiled_spmm as K3
     rng = np.random.default_rng(0)
     g, n = _v1_graph(case, rng)
@@ -474,6 +534,7 @@ def test_tiled_spmm_matches_plain(cuda, case, dtype, f):
         got = K3.tiled_spmm(t, x)
         torch.cuda.synchronize()
         assert K3.launches == before + 1
+        assert torch.equal(got, K3.tiled_spmm(t, x))
         want = K3.tiled_spmm_reference(t, x)
         assert got.dtype == dtype and got.shape == want.shape
         err = _rel(got, want)
@@ -488,6 +549,32 @@ def test_tiled_spmm_matches_plain(cuda, case, dtype, f):
                         torch.from_numpy(oracle)) <= 1e-5
         if case == "empty_tiles" and t is gc.tiled:
             assert torch.all(got[100:] == 0)
+
+
+@pytest.mark.parametrize("case", V1_CASES)
+@pytest.mark.parametrize("f,vec", [(41, 1), (47, 1), (256, 4), (100, 2)])
+@pytest.mark.parametrize("rows", [False, True])
+@pytest.mark.parametrize("group", [8, 16])
+def test_tiled_spmm_plans_match_plain(cuda, case, f, vec, rows, group):
+    """Both K3 modes with groups of 8 and 16 lanes, each lane holding the
+    fewest vectors that cover F (the plans a measurement compares),
+    against the plain walk at 1e-5, bitwise equal over two launches; a
+    plan without an instance raises."""
+    from gist_tpu_torch.ops import tiled_spmm as K3
+    rng = np.random.default_rng(0)
+    g, n = _v1_graph(case, rng)
+    gc = g.to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32))
+    x = x.to(cuda)
+    plan = K3.Plan(rows, group, min(-(-f // (group * vec)),
+                                    K3.MAX_ACC // vec), vec)
+    with pytest.raises(RuntimeError):
+        K3.run_plan(gc.tiled, x, plan._replace(group=32))
+    for t in (gc.tiled, gc.tiled_t):
+        got = K3.run_plan(t, x, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, K3.run_plan(t, x, plan))
+        assert _rel(got, K3.tiled_spmm_reference(t, x)) <= 1e-5
 
 
 def test_tiled_aggregate_grad_and_missing_transpose(cuda):
