@@ -20,7 +20,7 @@ raising on failure:
    clusters, counting K1 launches;
 7. GAT kernels: K4, K5 and K6 against their plain versions at the shapes
    of one real batch of the GAT main path (synth-reddit-small, psize 10,
-   batch 4), with times beside the segment composite's; K6 also with its
+   batch 4), with times beside the segment composite's, each with its
    profiler time and two launches held bitwise equal;
 8. GAT reference: gradients and three training steps of a GAT
    sub-model (width 256, 2 heads, 2 layers) through K4-K6 and through
@@ -556,7 +556,11 @@ def phase_gat_kernels(torch, device, sampler):
     batch of the GAT main path.  ``segment_ms`` is the port's segment
     composite on the same batch (K4: the attention forward; K5 and K6:
     the whole backward of one head, which both together replace); no
-    single PyTorch call computes these functions."""
+    single PyTorch call computes these functions.  Each row prints its
+    error beside its bar: K4 1e-5 relative (fp32), K5 and K6 1e-4.  No
+    kernel adds with atomics, so K5's and K6's error measures only their
+    order of summation (a lane's columns of each dot product, then one
+    warp sum per row) against the plain version's matrix products."""
     import numpy as np
 
     from gist_tpu_torch.ops import gat_dedup as G
@@ -604,7 +608,7 @@ def phase_gat_kernels(torch, device, sampler):
             _layout_bytes(tf) + z.numel() * item + (src.numel()
                                                     + dst_rows.numel()) * 4
             + rn * heads * (o * item + 8),
-            nnz * heads * (2 * o + 6), dtype)
+            nnz * heads * (2 * o + 6), dtype, kernel_name="gat_fwd_kernel")
         # K5 and K6 for head 0, on this forward's m and l
         zh, gh = z[:, 0].contiguous(), randn(n, o)
         sh, dh = src[:, 0].contiguous(), dst[:, 0].contiguous()
@@ -630,7 +634,8 @@ def phase_gat_kernels(torch, device, sampler):
             lambda: G.gat_bwd_b1(*b1_args),
             lambda: G.gat_bwd_b1_reference(*b1_args), seg_bwd,
             _layout_bytes(tf) + rn * o * 4 + n * o * item + rn * 4 * 5
-            + n * 4, nnz * (2 * o + 10), dtype)
+            + n * 4, nnz * (2 * o + 10), dtype,
+            kernel_name="gat_bwd_b1_kernel")
         rows[("K6", tag)] = _gat_row(
             torch, "K6", tag, G.gat_bwd_b2(*b2_args),
             G.gat_bwd_b2_reference(*b2_args), tol_b,
@@ -639,6 +644,22 @@ def phase_gat_kernels(torch, device, sampler):
             _layout_bytes(tt) + 2 * rt * o * item + rt * 8 + n * o * 4
             + n * 16, nnz_t * (4 * o + 10), dtype,
             kernel_name="gat_bwd_b2_kernel")
+
+    # K4 at H=2, O=256 in one launch (a warp per (row, head), a row's
+    # heads neighbours in launch order) against one launch per head on
+    # that head's contiguous slice: the yardstick for a warp that walks
+    # both heads of its row (PERF.md, Findings)
+    z2, src2 = randn(n, 2, 256), randn(n, 2)
+    dst2 = randn(tf.num_tiles * tf.tile_rows, 2)
+    both = lay_f + (z2, src2, dst2, slope)
+    alone = [lay_f + tuple(t[:, h:h + 1].contiguous()
+                           for t in (z2, src2, dst2)) + (slope,)
+             for h in range(2)]
+    emit({"phase": "gat_kernels", "kernel": "K4",
+          "case": "H=2 O=256 float32, launches", "ms": {
+              "one launch": _kernel_ms(torch, lambda: G.gat_fwd(*both)),
+              "a launch per head": _kernel_ms(
+                  torch, lambda: [G.gat_fwd(*a) for a in alone])}})
     return rows
 
 
@@ -646,8 +667,8 @@ def phase_gat_reference(torch, device, sampler):
     """One GAT sub-model of the main path (width 256, 2 heads, 2 layers)
     on three real batches, through K4-K6 and through the segment path:
     the first step's parameter gradients and the losses of three Adam
-    steps must agree to 1e-4 relative (fp32; summation order and K5's
-    atomics are the only differences)."""
+    steps must agree to 1e-4 relative (fp32; the order of summation is
+    the only difference)."""
     from gist_tpu_torch.ist.ultrawide import build_local_burst_single
     from gist_tpu_torch.models import gat
     from gist_tpu_torch.models.common import masked_cross_entropy

@@ -21,9 +21,9 @@
 //   1. reads its row's CU counts, 32 bytes a lane in one coalesced
 //      sweep, the next job's counts already in flight;
 //   2. turns them into the row's list of nonzero slots in slot order
-//      (list_nonzero, also K6's first step in gat_dedup.cu): each lane
-//      makes a bit mask of its nonzero bytes (a byte compare and a
-//      multiply that gathers the bits), a warp prefix sum of their
+//      (list_nonzero, also the first step of K4-K6 in gat_dedup.cu):
+//      each lane makes a bit mask of its nonzero bytes (a byte compare
+//      and a multiply that gathers the bits), a warp prefix sum of their
 //      popcounts places each lane's (slot, count) entries in a per-warp
 //      list in shared memory;
 //   3. walks the list 32 entries at a time: each lane reads one entry's

@@ -20,53 +20,44 @@
 //   K6 (transpose layout: tile rows are senders s, slots receivers r):
 //       dz_s = sum_r A(s, r) G_r,  dsrc_s = sum_r ds(s, r).
 //
-// Design.  Every kernel walks its tile's jobs in a loop inside the block
-// (Hopper blocks run in any order; there is no sequential grid to carry
-// a running sum).
+// Design.  All three walk only the nonzero counts, with K1's list step
+// (count_block.cuh), through one row walk (walk_row below): one warp owns
+// one row of a tile and keeps that row's 256-column chunk of its own
+// matrix in registers.  For each job it reads the row's CU counts once,
+// the next job's already in flight, lists the nonzero (slot, count)
+// entries, then takes them 32 at a time: each lane loads one entry's node
+// id and forms its scalars with one exp; then every entry's row chunk of
+// the gathered matrix is read by all lanes across the columns, four rows
+// in flight, into fp32 FMAs (not TF32).
 //
-// * K4 (accumulate blocks): one block per (tile, head, 64-column slice).
-//   Per step the 256 threads rebuild a (TN x 32) probability slice from W
-//   and the staged per-slot scalars, gather the 32 matching rows through
-//   u_senders into shared memory, and run fp32 FMAs into an 8 x 4
-//   register block each.  It needs the row max first: a first pass over
-//   the tile's jobs computes m_r exactly, the second accumulates with it,
-//   so no rescaling is needed (the TPU kernel's online softmax gives the
-//   same m and l up to rounding).
-// * K5 (SDDMM blocks): one block per (tile, quarter of the slots of every
-//   job).  dalpha for a (TN x 64) slot block is an NT product over the
-//   feature depth, staged 32 columns at a time; the epilogue forms ds and
-//   reduces it over the slots into per-row sums.  The four quarters of a
-//   tile add their row sums with fp32 atomics into an output the caller
-//   zeroes, so the order of those four additions changes from run to run
-//   (rounding only).
-// * K6 walks only the nonzero counts, with K1's list step
-//   (count_block.cuh): one warp owns one row s of a transpose tile and
-//   keeps z_s's 256-column chunk in registers.  For each job it reads the
-//   row's CU counts once, lists the nonzero (slot, count) entries, then
-//   takes them 32 at a time: each lane loads one entry's receiver r and
-//   its scalars (dst_r, m_r, l_r, c_r) and forms A and
-//   coef = A * lrelu'(raw) with one exp; then every entry's G_r chunk is
-//   read by all lanes across the columns, four rows in flight, and
-//   dz += A * G_r and the lane's partial dot z_s . G_r are fp32 FMAs
-//   (not TF32).  ds = coef * (z_s . G_r - c_r) is linear in the dot, so
-//   each lane keeps sum_r coef * (its columns of z_s . G_r) and
-//   sum_r coef * c_r over its own entries, and one warp sum per row gives
-//   dsrc_s: no warp reduction per entry.  Above 256 columns the warp
-//   walks the jobs once per chunk (rebuilding the lists and the scalars
-//   costs less than keeping every chunk of z_s and dz in registers or
-//   shared memory at any width).  dz and dsrc are each stored once, every
-//   row written (empty rows and tiles with 0): no atomics, no zeroed
-//   output, and two launches give the same bits.
+// * K4 gathers z_u and keeps an online softmax: per batch a warp max of
+//   the lanes' scores moves the running max m, the lane rescales its
+//   accumulators and partial l by e^{m_old - m} where m moved, and forms
+//   p = w e^{e - m}; acc += p z_u.  m is the exact row max, l one warp sum
+//   at the end.  One warp per (row, head): a warp walking both heads of
+//   its row, paying the list step once, measured no faster on an H100
+//   (PERF.md), and holds twice the registers.
+// * K5 keeps G_r and gathers z_u; K6 keeps z_s and gathers G_r (dz +=
+//   A G_r).  ds = coef (dot - c) with coef = A lrelu'(raw) is linear in
+//   the dot, so each lane keeps sum coef * (its columns of the dot) and
+//   sum coef * c over its own entries, and one warp sum per row gives
+//   ddst_r (K5) or dsrc_s (K6): no reduction per entry.
 //
-// What bounds it on an H100.  K4 and K5 by the dense blocks they
-// multiply: at the GAT slice's batch (54 tiles, 136 jobs, W 1.3% dense)
-// K4 at H=2, O=256 does 2*136*128*1024*512 = 18 GFLOP of FMA on the
-// dense blocks where the useful work is ~0.23 GFLOP and the bytes the
-// function must move are ~40 MB (~12 us).  K6 by its gathers: W of the
-// transpose jobs (~18 MB) is read once, but each of ~0.29M nonzero
-// counts reads a 1 KB G row (O = 256, fp32), mostly from L2.  The TPU's
-// bf16 probability matrix and hi/lo split, the lane-broadcast m/l/dst
-// arrays and the materialised u_rows gathers are not carried over.
+// Above 256 columns a warp walks the jobs once per chunk (rebuilding the
+// lists and scalars costs less than keeping every chunk in registers or
+// shared memory at any width).  Every output element is stored once by
+// one lane or warp, empty rows and tiles included: no atomics, no zeroed
+// output, and two launches give the same bits.
+//
+// What bounds them on an H100: the chain of dependent loads of each row
+// (counts, list, node ids, scores, rows), not its bytes.  W of the real
+// jobs (~19 MB on the GAT slice's batch, 1.3% nonzero) is read once and
+// each of ~0.26M nonzero counts reads a row chunk, mostly from L2, but at
+// O = 41 the three take about as long as at O = 256 (PERF.md): more rows
+// in flight per SM, not fewer bytes, would make them faster.  The TPU's
+// dense (TN x CU) products, bf16 probability matrix and hi/lo split, the
+// lane-broadcast m/l/dst arrays and the materialised u_rows gathers are
+// not carried over.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,82 +69,116 @@ namespace {
 
 constexpr int TN = 128;       // destination rows per tile
 constexpr int CU = 1024;      // unique-sender slots per job
-constexpr int THREADS = 256;
-constexpr int FT = 64;        // feature columns per K4 block
-constexpr int KC = 32;        // slots staged per accumulate step
-constexpr int RPT = 8;        // register rows per thread (16 row groups)
-constexpr int CPT = 4;        // register columns per thread (16 groups)
-constexpr int KS = 64;        // slots per SDDMM step
-constexpr int DK = 32;        // feature depth staged per SDDMM step
-constexpr int SPLIT = 4;      // SDDMM blocks per tile
-constexpr int SLOTS = CU / SPLIT;
+constexpr int WARPS = count_block::WARPS;
+constexpr int CHUNK = count_block::FT;   // columns per pass over the jobs
+constexpr int EPL = count_block::EPL;    // of them per lane
+constexpr int WPL = CU / 32 / 16;        // 16-byte count loads per lane
+constexpr unsigned ALL = 0xffffffffu;
 constexpr float NEG_INF = -1e30f;
+static_assert(TN % WARPS == 0, "layout");
 
-static_assert(TN == 16 * RPT && FT == 16 * CPT && KS == 16 * CPT, "layout");
-static_assert(THREADS * 16 == TN * KC, "one 16-byte W load per thread");
-static_assert((KC * FT) % THREADS == 0, "row slice split evenly");
-static_assert((TN * DK / 4) % THREADS == 0 && (KS * DK / 4) % THREADS == 0,
-              "SDDMM staging split evenly");
-static_assert(SLOTS % KS == 0, "SDDMM steps");
-
-// shared memory (floats) of a K5 block
-constexpr int SDDMM_SMEM = SLOTS + DK * TN + DK * KS + 4 * TN;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 __device__ __forceinline__ float lrelu(float x, float slope) {
   return x > 0.f ? x : slope * x;
 }
 
-// acc[i][c] += sum_kk ps[kk][ty*RPT + i] * zs[kk][tx*CPT + c]
-__device__ __forceinline__ void fma_chunk(const float* ps, const float* zs,
-                                          float acc[RPT][CPT], int tx,
-                                          int ty) {
-#pragma unroll 8
-  for (int kk = 0; kk < KC; ++kk) {
-    const float4 a0 = *reinterpret_cast<const float4*>(ps + kk * TN + ty * RPT);
-    const float4 a1 =
-        *reinterpret_cast<const float4*>(ps + kk * TN + ty * RPT + 4);
-    const float4 bv = *reinterpret_cast<const float4*>(zs + kk * FT + tx * CPT);
-    const float a[RPT] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float b[CPT] = {bv.x, bv.y, bv.z, bv.w};
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
-  }
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(ALL, v, o);
+  return v;
 }
 
-// zs[kk][c] = mat[u[kk] * ld + off + f0 + c] (0 past ncols) for KC slots
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* zs, const T* __restrict__ mat,
-                                           int64_t ld, int64_t off, int ncols,
-                                           const int32_t* __restrict__ u,
-                                           int f0, int tid) {
+// The lanes' share of a chunk of wf columns: load h of a lane holds
+// columns h * 32 * V + lane * V + 0 .. V-1, where they exist.
+template <int V>
+struct Lanes {
+  static constexpr int LOADS = EPL / V;
+  bool has[LOADS];
+  __device__ __forceinline__ Lanes(int wf, int lane) {
 #pragma unroll
-  for (int q = 0; q < (KC * FT) / THREADS; ++q) {
-    const int idx = q * THREADS + tid;
-    const int kk = idx / FT;
-    const int c = idx % FT;
-    const int col = f0 + c;
-    const int64_t row = __ldg(u + kk);
-    zs[kk * FT + c] = col < ncols ? to_f(mat[row * ld + off + col]) : 0.f;
+    for (int h = 0; h < LOADS; ++h) has[h] = h * 32 * V + lane * V < wf;
+  }
+  // f(col, x) for each of this lane's columns col (0 .. EPL-1) of the row
+  // at p
+  template <typename T, typename F>
+  __device__ __forceinline__ void each(const T* p, F f) const {
+#pragma unroll
+    for (int h = 0; h < LOADS; ++h) {
+      if (!has[h]) continue;
+      float q[V];
+      count_block::load<V>(p + h * 32 * V, q);
+#pragma unroll
+      for (int k = 0; k < V; ++k) f(h * V + k, q[k]);
+    }
+  }
+  template <typename T>
+  __device__ __forceinline__ void store(T* p, const float (&v)[EPL]) const {
+#pragma unroll
+    for (int h = 0; h < LOADS; ++h)
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        if (has[h]) count_block::store_val(p + h * 32 * V + k, v[h * V + k]);
+  }
+};
+
+// The walk of row r of `tile` over the nonzero counts of its jobs, 32
+// entries a batch.  For each batch every lane calls
+//   entry(live, node, cnt)
+// (live: the lane holds an entry of the batch; node = u_senders[slot] and
+// cnt its count, 0 and 0 where not live), which forms the lane's scalars
+// and may use warp shuffles (every lane calls it); then for each entry e
+// of the batch every lane calls
+//   use(e, mat + node_e * ld)
+// to read its columns of that row (with Lanes::each).
+template <typename TM, typename Entry, typename Use>
+__device__ __forceinline__ void walk_row(
+    const int32_t* __restrict__ job_offsets,
+    const int8_t* __restrict__ w_blocks,
+    const int32_t* __restrict__ u_senders, int tile, int r, int lane,
+    uint32_t* list, const TM* __restrict__ mat, int64_t ld, Entry entry,
+    Use use) {
+  const int j_begin = job_offsets[tile];
+  const int j_end = job_offsets[tile + 1];
+  uint4 next[WPL];
+  if (j_begin < j_end)
+    count_block::load_counts<TN, CU>(w_blocks, j_begin, r, lane, next);
+  for (int j = j_begin; j < j_end; ++j) {
+    uint4 w[WPL];
+#pragma unroll
+    for (int i = 0; i < WPL; ++i) w[i] = next[i];
+    if (j + 1 < j_end)
+      count_block::load_counts<TN, CU>(w_blocks, j + 1, r, lane, next);
+    const int total = count_block::list_nonzero(w, ~0u, lane, list);
+    const int32_t* uj = u_senders + (size_t)j * CU;
+
+    for (int e0 = 0; e0 < total; e0 += 32) {
+      const bool live = e0 + lane < total;
+      int node = 0;
+      float cnt = 0.f;
+      if (live) {
+        const uint32_t item = list[e0 + lane];
+        node = __ldg(uj + (item & 0xffff));
+        cnt = (float)(item >> 16);
+      }
+      entry(live, node, cnt);
+      const int batch = min(32, total - e0);
+#pragma unroll 4
+      for (int e = 0; e < batch; ++e)
+        use(e, mat + (int64_t)__shfl_sync(ALL, node, e) * ld);
+    }
+    __syncwarp();
   }
 }
 
 // ---------------------------------------------------------------------------
-// K4: forward.  grid (num_tiles, heads, ceil(o / FT)).
+// K4: forward.  num_tiles * TN / WARPS * heads blocks of
+// count_block::THREADS, one warp per (row, head); block b holds head
+// b % heads of rows (b / heads) * WARPS .., so a row's heads are
+// neighbours in launch order and share its counts in L2.
 // z (N, H, O) in T; src (N, H), dst_rows (tiles*TN, H) f32;
-// out (tiles*TN, H, O) in T; m, l (tiles*TN, H) f32, written by slice 0.
+// out (tiles*TN, H, O) in T; m, l (tiles*TN, H) f32.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int V>
+__global__ void __launch_bounds__(count_block::THREADS)
 gat_fwd_kernel(const int32_t* __restrict__ job_offsets,
                const int8_t* __restrict__ w_blocks,
                const int32_t* __restrict__ u_senders,
@@ -161,243 +186,70 @@ gat_fwd_kernel(const int32_t* __restrict__ job_offsets,
                const float* __restrict__ dst_rows, T* __restrict__ out,
                float* __restrict__ m_out, float* __restrict__ l_out,
                int heads, int o, float slope) {
-  __shared__ __align__(16) float usc[CU];      // src scores of the job's slots
-  __shared__ __align__(16) float ps[KC * TN];  // probability slice, transposed
-  __shared__ __align__(16) float zs[KC * FT];  // gathered z rows
-  __shared__ float s_row[TN];
+  __shared__ uint32_t lists[WARPS][CU];    // (slot | count << 16) entries
 
-  const int tile = blockIdx.x;
-  const int h = blockIdx.y;
-  const int f0 = blockIdx.z * FT;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int r = tid >> 1, half = tid & 1;   // score-block row and half
-  const size_t row = (size_t)tile * TN + r;
-  const float d = dst_rows[row * heads + h];
-  const int j_begin = job_offsets[tile];
-  const int j_end = job_offsets[tile + 1];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int h = (int)(blockIdx.x % heads);
+  const size_t row = (size_t)(blockIdx.x / heads) * WARPS + warp;
+  const size_t at = row * heads + h;       // the (row, head) pair
+  const float d = dst_rows[at];
 
-  // pass 1: the row's max score over its edges
-  float mx = NEG_INF;
-  for (int j = j_begin; j < j_end; ++j) {
-    const int32_t* uj = u_senders + (size_t)j * CU;
-    __syncthreads();
-    for (int c = tid; c < CU; c += THREADS)
-      usc[c] = src[(int64_t)__ldg(uj + c) * heads + h];
-    __syncthreads();
-    const int8_t* wr =
-        w_blocks + ((size_t)j * TN + r) * CU + half * (CU / 2);
-    for (int k = 0; k < CU / 2; k += 16) {
-      const int4 v = __ldg(reinterpret_cast<const int4*>(wr + k));
-      const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+  for (int f0 = 0; f0 < o; f0 += CHUNK) {
+    const Lanes<V> lanes(min(CHUNK, o - f0), lane);
+    float acc[EPL] = {};
+    float mx = NEG_INF;   // the running max, the same on every lane
+    float part = 0.f;     // this lane's entries' share of l
+    float p = 0.f;        // this lane's entry's weight
+    walk_row(
+        job_offsets, w_blocks, u_senders, (int)(row / TN), (int)(row % TN),
+        lane, lists[warp], z + (int64_t)h * o + f0 + lane * V,
+        (int64_t)heads * o,
+        [&](bool live, int node, float cnt) {
+          const float e =
+              live ? lrelu(d + __ldg(src + (int64_t)node * heads + h), slope)
+                   : NEG_INF;
+          float bm = e;
 #pragma unroll
-      for (int q = 0; q < 16; ++q)
-        if (b[q] > 0)
-          mx = fmaxf(mx, lrelu(d + usc[half * (CU / 2) + k + q], slope));
-    }
-  }
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-
-  // pass 2: probabilities with the exact row max, accumulated
-  float acc[RPT][CPT];
+          for (int s = 16; s > 0; s >>= 1)
+            bm = fmaxf(bm, __shfl_xor_sync(ALL, bm, s));
+          if (bm > mx) {   // warp-uniform
+            const float scale = expf(mx - bm);
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  float s_part = 0.f;
-  for (int j = j_begin; j < j_end; ++j) {
-    const int32_t* uj = u_senders + (size_t)j * CU;
-    const int8_t* wj = w_blocks + (size_t)j * TN * CU;
-    __syncthreads();
-    for (int c = tid; c < CU; c += THREADS)
-      usc[c] = src[(int64_t)__ldg(uj + c) * heads + h];
-    __syncthreads();
-    for (int k0 = 0; k0 < CU; k0 += KC) {
-      {
-        const int4 v = __ldg(
-            reinterpret_cast<const int4*>(wj + (size_t)r * CU + k0 + half * 16));
-        const int8_t* b = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-        for (int q = 0; q < 16; ++q) {
-          const int c = half * 16 + q;
-          float p = 0.f;
-          if (b[q] > 0)
-            p = (float)b[q] * expf(lrelu(d + usc[k0 + c], slope) - mx);
-          s_part += p;
-          ps[c * TN + r] = p;
-        }
-      }
-      stage_rows(zs, z, (int64_t)heads * o, (int64_t)h * o, o, uj + k0, f0,
-                 tid);
-      __syncthreads();
-      fma_chunk(ps, zs, acc, tx, ty);
-      __syncthreads();
-    }
-  }
-  const float s = s_part + __shfl_xor_sync(0xffffffffu, s_part, 1);
-  if (half == 0) {
-    s_row[r] = s;
-    if (blockIdx.z == 0) {
-      m_out[row * heads + h] = mx;
-      l_out[row * heads + h] = s;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int rr = ty * RPT + i;
-    const float sv = s_row[rr];
-    const size_t orow = ((size_t)tile * TN + rr) * heads + h;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = f0 + tx * CPT + c;
-      if (col < o)
-        store_val(out + orow * o + col,
-                  sv > 0.f ? acc[i][c] / fmaxf(sv, 1e-20f) : 0.f);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// SDDMM block (K5): rowsum[tile*TN + r] += sum over this block's quarter
-// q of every job's slots of
-//   A(r, u) * (rowmat[r] . slotmat[u] - c_r) * lrelu'(row_score[r] + slot_score[u])
-// with m, l, c per row (row order).
-// ---------------------------------------------------------------------------
-template <typename TS>
-__device__ __forceinline__ void sddmm_rowsum(
-    const int32_t* __restrict__ job_offsets,
-    const int8_t* __restrict__ w_blocks,
-    const int32_t* __restrict__ u_senders, const float* __restrict__ rowmat,
-    const TS* __restrict__ slotmat, int dcols,
-    const float* __restrict__ row_score, const float* __restrict__ slot_score,
-    const float* __restrict__ m, const float* __restrict__ l,
-    const float* __restrict__ c, float* __restrict__ rowsum, int tile, int q,
-    float slope, float* smem) {
-  float* sc_u = smem;                // SLOTS slot scores
-  float* rs = sc_u + SLOTS;          // DK x TN row features, transposed
-  float* ss = rs + DK * TN;          // DK x KS slot features, transposed
-  float* r_sc = ss + DK * KS;        // TN row scores
-  float* r_m = r_sc + TN;            // TN row stats
-  float* r_l = r_m + TN;
-  float* r_c = r_l + TN;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const size_t row0 = (size_t)tile * TN;
-  if (tid < TN) {
-    r_sc[tid] = row_score[row0 + tid];
-    r_m[tid] = m[row0 + tid];
-    r_l[tid] = l[row0 + tid];
-    r_c[tid] = c[row0 + tid];
-  }
-  float racc[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) racc[i] = 0.f;
-
-  const int j_begin = job_offsets[tile];
-  const int j_end = job_offsets[tile + 1];
-  for (int j = j_begin; j < j_end; ++j) {
-    const int32_t* uj = u_senders + (size_t)j * CU + q * SLOTS;
-    const int8_t* wj = w_blocks + (size_t)j * TN * CU + q * SLOTS;
-    __syncthreads();
-    for (int s = tid; s < SLOTS; s += THREADS)
-      sc_u[s] = slot_score[__ldg(uj + s)];
-    __syncthreads();
-    for (int k0 = 0; k0 < SLOTS; k0 += KS) {
-      float acc[RPT][CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) acc[i][cc] = 0.f;
-      for (int d0 = 0; d0 < dcols; d0 += DK) {
-        // row features: a warp reads 32 rows at one depth quad, so the
-        // transposed stores hit 32 banks
-#pragma unroll
-        for (int p = 0; p < (TN * DK / 4) / THREADS; ++p) {
-          const int idx = p * THREADS + tid;
-          const int rr = idx % TN;
-          const int dq = (idx / TN) * 4;
-          const float* src_p = rowmat + (row0 + rr) * dcols + d0 + dq;
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            rs[(dq + e) * TN + rr] =
-                d0 + dq + e < dcols ? to_f(src_p[e]) : 0.f;
-        }
-#pragma unroll
-        for (int p = 0; p < (KS * DK / 4) / THREADS; ++p) {
-          const int idx = p * THREADS + tid;
-          const int sl = idx % KS;
-          const int dq = (idx / KS) * 4;
-          const TS* src_p =
-              slotmat + (int64_t)__ldg(uj + k0 + sl) * dcols + d0 + dq;
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            ss[(dq + e) * KS + sl] =
-                d0 + dq + e < dcols ? to_f(src_p[e]) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int kk = 0; kk < DK; ++kk) {
-          const float4 a0 =
-              *reinterpret_cast<const float4*>(rs + kk * TN + ty * RPT);
-          const float4 a1 =
-              *reinterpret_cast<const float4*>(rs + kk * TN + ty * RPT + 4);
-          const float4 bv =
-              *reinterpret_cast<const float4*>(ss + kk * KS + tx * CPT);
-          const float a[RPT] = {a0.x, a0.y, a0.z, a0.w,
-                                a1.x, a1.y, a1.z, a1.w};
-          const float b[CPT] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-          for (int i = 0; i < RPT; ++i)
-#pragma unroll
-            for (int cc = 0; cc < CPT; ++cc)
-              acc[i][cc] = fmaf(a[i], b[cc], acc[i][cc]);
-        }
-        __syncthreads();
-      }
-      // epilogue: ds for this thread's 8 x 4 entries, summed over slots
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int rr = ty * RPT + i;
-        const char4 wv = *reinterpret_cast<const char4*>(
-            wj + (size_t)rr * CU + k0 + tx * CPT);
-        const int8_t wq[CPT] = {wv.x, wv.y, wv.z, wv.w};
-        float part = 0.f;
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) {
-          if (wq[cc] > 0) {
-            const int s = k0 + tx * CPT + cc;
-            const float raw = r_sc[rr] + sc_u[s];
-            const float e = lrelu(raw, slope);
-            const float gp = raw > 0.f ? 1.f : slope;
-            const float A = (float)wq[cc] * expf(fminf(e - r_m[rr], 0.f)) /
-                            fmaxf(r_l[rr], 1e-20f);
-            part += A * (acc[i][cc] - r_c[rr]) * gp;
+            for (int k = 0; k < EPL; ++k) acc[k] *= scale;
+            part *= scale;
+            mx = bm;
           }
-        }
-        part += __shfl_xor_sync(0xffffffffu, part, 8);
-        part += __shfl_xor_sync(0xffffffffu, part, 4);
-        part += __shfl_xor_sync(0xffffffffu, part, 2);
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        racc[i] += part;
-      }
-    }
-  }
-  if (tx == 0) {
+          p = live ? cnt * expf(e - mx) : 0.f;
+          part += p;
+        },
+        [&](int e, const T* zu) {
+          const float pe = __shfl_sync(ALL, p, e);
+          lanes.each(zu, [&](int col, float x) {
+            acc[col] = fmaf(pe, x, acc[col]);
+          });
+        });
+    const float l = warp_sum(part);
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
-      atomicAdd(rowsum + row0 + ty * RPT + i, racc[i]);
+    for (int k = 0; k < EPL; ++k)
+      acc[k] = l > 0.f ? acc[k] / fmaxf(l, 1e-20f) : 0.f;
+    lanes.store(out + at * o + f0 + lane * V, acc);
+    if (f0 == 0 && lane == 0) {
+      m_out[at] = mx;
+      l_out[at] = l;
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K5: backward B1 on the forward layout.  grid (num_tiles, SPLIT).
+// K5: backward B1 on the forward layout.  num_tiles * TN / WARPS blocks
+// of count_block::THREADS, one warp per row r.
 // g_rows (tiles*TN, D) f32; z (N, D) in T; dst_rows, m_rows, l_rows,
-// c_rows (tiles*TN) f32; src (N) f32; ddst (tiles*TN) f32, zeroed.
+// c_rows (tiles*TN) f32; src (N) f32; ddst (tiles*TN) f32, every element
+// written.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int V>
+__global__ void __launch_bounds__(count_block::THREADS)
 gat_bwd_b1_kernel(const int32_t* __restrict__ job_offsets,
                   const int8_t* __restrict__ w_blocks,
                   const int32_t* __restrict__ u_senders,
@@ -408,16 +260,49 @@ gat_bwd_b1_kernel(const int32_t* __restrict__ job_offsets,
                   const float* __restrict__ l_rows,
                   const float* __restrict__ c_rows, float* __restrict__ ddst,
                   int dcols, float slope) {
-  __shared__ __align__(16) float smem[SDDMM_SMEM];
-  sddmm_rowsum<T>(job_offsets, w_blocks, u_senders, g_rows, z, dcols,
-                  dst_rows, src, m_rows, l_rows, c_rows, ddst, blockIdx.x,
-                  blockIdx.y, slope, smem);
+  __shared__ uint32_t lists[WARPS][CU];
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const size_t row = (size_t)blockIdx.x * WARPS + warp;
+  const float d = dst_rows[row], mr = m_rows[row];
+  const float lr = fmaxf(l_rows[row], 1e-20f), cr = c_rows[row];
+
+  float ds_dot = 0.f;  // sum over this lane's columns and every entry of
+                       // coef * G_r[col] * z_u[col]
+  float ds_c = 0.f;    // sum over this lane's entries of coef * c_r
+  for (int f0 = 0; f0 < dcols; f0 += CHUNK) {
+    const Lanes<V> lanes(min(CHUNK, dcols - f0), lane);
+    float gs[EPL] = {};
+    lanes.each(g_rows + row * dcols + f0 + lane * V,
+               [&](int col, float x) { gs[col] = x; });
+    float coef = 0.f;
+    walk_row(
+        job_offsets, w_blocks, u_senders, (int)(row / TN), (int)(row % TN),
+        lane, lists[warp], z + f0 + lane * V, (int64_t)dcols,
+        [&](bool live, int node, float cnt) {
+          if (!live) return;
+          const float raw = d + __ldg(src + node);
+          const float a =
+              cnt * expf(fminf(lrelu(raw, slope) - mr, 0.f)) / lr;
+          coef = raw > 0.f ? a : a * slope;
+          if (f0 == 0) ds_c = fmaf(coef, cr, ds_c);
+        },
+        [&](int e, const T* zu) {
+          const float ce = __shfl_sync(ALL, coef, e);
+          float dot = 0.f;
+          lanes.each(zu,
+                     [&](int col, float x) { dot = fmaf(gs[col], x, dot); });
+          ds_dot = fmaf(ce, dot, ds_dot);
+        });
+  }
+  const float t = warp_sum(ds_dot - ds_c);
+  if (lane == 0) ddst[row] = t;
 }
 
 // ---------------------------------------------------------------------------
 // K6: backward B2 on the transpose layout.  num_tiles * TN / WARPS blocks
-// of count_block::THREADS, one warp per row s (the blocks of a tile are
-// neighbours in launch order).
+// of count_block::THREADS, one warp per row s.
 // z_rows (tiles*TN, D) in T; src_rows (tiles*TN) f32; g (N, D) f32;
 // dst, m, l, c (N) f32; dz (tiles*TN, D) in T; dsrc (tiles*TN) f32.
 // Every element of dz and dsrc is written.
@@ -433,121 +318,64 @@ gat_bwd_b2_kernel(const int32_t* __restrict__ job_offsets,
                   const float* __restrict__ m, const float* __restrict__ l,
                   const float* __restrict__ c, T* __restrict__ dz,
                   float* __restrict__ dsrc, int dcols, float slope) {
-  constexpr unsigned ALL = 0xffffffffu;
-  constexpr int WARPS = count_block::WARPS;
-  constexpr int CHUNK = count_block::FT;   // columns per pass over the jobs
-  constexpr int EPL = count_block::EPL;    // of them per lane
-  constexpr int LOADS = EPL / V;           // row loads per entry and lane
-  constexpr int WPL = CU / 32 / 16;        // 16-byte count loads per lane
-  static_assert(TN % WARPS == 0, "layout");
-
-  __shared__ uint32_t lists[WARPS][CU];    // (slot | count << 16) entries
+  __shared__ uint32_t lists[WARPS][CU];
 
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const size_t row = (size_t)blockIdx.x * WARPS + warp;
-  const int tile = (int)(row / TN);
-  const int r = (int)(row % TN);
-  const int j_begin = job_offsets[tile];
-  const int j_end = job_offsets[tile + 1];
   const float sr = src_rows[row];
-  uint32_t* list = lists[warp];
 
   float ds_dot = 0.f;  // sum over this lane's columns and every entry of
                        // coef * z_s[col] * G_r[col]
   float ds_c = 0.f;    // sum over this lane's entries of coef * c_r
   for (int f0 = 0; f0 < dcols; f0 += CHUNK) {
-    const int wf = min(CHUNK, dcols - f0);
-    bool has[LOADS];
-    float zs[EPL], acc[EPL];
-#pragma unroll
-    for (int h = 0; h < LOADS; ++h) {
-      has[h] = h * 32 * V + lane * V < wf;
-      float v[V];
-      if (has[h])
-        count_block::load<V>(z_rows + row * dcols + f0 + h * 32 * V +
-                                 lane * V, v);
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        zs[h * V + k] = has[h] ? v[k] : 0.f;
-        acc[h * V + k] = 0.f;
-      }
-    }
-    const float* gs = g + f0 + lane * V;
-
-    uint4 next[WPL];
-    if (j_begin < j_end)
-      count_block::load_counts<TN, CU>(w_blocks, j_begin, r, lane, next);
-    for (int j = j_begin; j < j_end; ++j) {
-      uint4 w[WPL];
-#pragma unroll
-      for (int i = 0; i < WPL; ++i) w[i] = next[i];
-      if (j + 1 < j_end)
-        count_block::load_counts<TN, CU>(w_blocks, j + 1, r, lane, next);
-      const int total = count_block::list_nonzero(w, ~0u, lane, list);
-      const int32_t* uj = u_senders + (size_t)j * CU;
-
-      for (int e0 = 0; e0 < total; e0 += 32) {
-        // lane e: entry e0 + e's receiver, A and coef = A * lrelu'(raw)
-        int node = 0;
-        float a = 0.f, coef = 0.f;
-        if (e0 + lane < total) {
-          const uint32_t entry = list[e0 + lane];
-          node = __ldg(uj + (entry & 0xffff));
+    const Lanes<V> lanes(min(CHUNK, dcols - f0), lane);
+    float zs[EPL] = {}, acc[EPL] = {};
+    lanes.each(z_rows + row * dcols + f0 + lane * V,
+               [&](int col, float x) { zs[col] = x; });
+    float a = 0.f, coef = 0.f;
+    walk_row(
+        job_offsets, w_blocks, u_senders, (int)(row / TN), (int)(row % TN),
+        lane, lists[warp], g + f0 + lane * V, (int64_t)dcols,
+        [&](bool live, int node, float cnt) {
+          if (!live) return;
           const float raw = sr + __ldg(dst + node);
-          a = (float)(entry >> 16) *
-              expf(fminf(lrelu(raw, slope) - __ldg(m + node), 0.f)) /
+          a = cnt * expf(fminf(lrelu(raw, slope) - __ldg(m + node), 0.f)) /
               fmaxf(__ldg(l + node), 1e-20f);
           coef = raw > 0.f ? a : a * slope;
           if (f0 == 0) ds_c = fmaf(coef, __ldg(c + node), ds_c);
-        }
-        const int batch = min(32, total - e0);
-#pragma unroll 4
-        for (int e = 0; e < batch; ++e) {
-          const float* p = gs + (int64_t)__shfl_sync(ALL, node, e) * dcols;
+        },
+        [&](int e, const float* gr) {
           const float ae = __shfl_sync(ALL, a, e);
           const float ce = __shfl_sync(ALL, coef, e);
           float dot = 0.f;
-#pragma unroll
-          for (int h = 0; h < LOADS; ++h) {
-            if (!has[h]) continue;
-            float v[V];
-            count_block::load<V>(p + h * 32 * V, v);
-#pragma unroll
-            for (int k = 0; k < V; ++k) {
-              acc[h * V + k] = fmaf(ae, v[k], acc[h * V + k]);
-              dot = fmaf(zs[h * V + k], v[k], dot);
-            }
-          }
+          lanes.each(gr, [&](int col, float x) {
+            acc[col] = fmaf(ae, x, acc[col]);
+            dot = fmaf(zs[col], x, dot);
+          });
           ds_dot = fmaf(ce, dot, ds_dot);
-        }
-      }
-      __syncwarp();
-    }
-
-    T* o = dz + row * dcols + f0 + lane * V;
-#pragma unroll
-    for (int h = 0; h < LOADS; ++h)
-#pragma unroll
-      for (int k = 0; k < V; ++k)
-        if (has[h]) store_val(o + h * 32 * V + k, acc[h * V + k]);
+        });
+    lanes.store(dz + row * dcols + f0 + lane * V, acc);
   }
-  float t = ds_dot - ds_c;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(ALL, t, o);
+  const float t = warp_sum(ds_dot - ds_c);
   if (lane == 0) dsrc[row] = t;
 }
 
-// The widest V in {4, 2, 1} that divides dcols and to which g (f32) and
-// z_rows and dz (T) are aligned.
+// The widest V in {4, 2, 1} that divides cols and to which the rows of
+// the f32 arrays f32 and of the T arrays t are aligned (V elements).
 template <typename T>
-int b2_vec(int dcols, const void* g, const void* z_rows, const void* dz) {
-  const uintptr_t rows = (uintptr_t)z_rows | (uintptr_t)dz;
+int row_vec(int cols, uintptr_t f32, uintptr_t t) {
   for (int v = 4; v > 1; v /= 2)
-    if (dcols % v == 0 && (uintptr_t)g % (v * sizeof(float)) == 0 &&
-        rows % (v * sizeof(T)) == 0)
+    if (cols % v == 0 && f32 % (v * sizeof(float)) == 0 &&
+        t % (v * sizeof(T)) == 0)
       return v;
   return 1;
+}
+
+// The instance of a kernel for V
+template <typename K>
+K pick(int v, K k4, K k2, K k1) {
+  return v == 4 ? k4 : v == 2 ? k2 : k1;
 }
 
 template <typename T>
@@ -556,8 +384,11 @@ int launch_fwd(const void* job_offsets, const void* w_blocks,
                const void* dst_rows, void* out, void* m, void* l,
                int num_tiles, int heads, int o, float slope, void* stream) {
   if (num_tiles > 0 && heads > 0 && o > 0) {
-    const dim3 grid(num_tiles, heads, (o + FT - 1) / FT);
-    gat_fwd_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    const auto kernel = pick(row_vec<T>(o, 0, (uintptr_t)z | (uintptr_t)out),
+                             gat_fwd_kernel<T, 4>, gat_fwd_kernel<T, 2>,
+                             gat_fwd_kernel<T, 1>);
+    kernel<<<num_tiles * (TN / WARPS) * heads, count_block::THREADS, 0,
+             (cudaStream_t)stream>>>(
         static_cast<const int32_t*>(job_offsets),
         static_cast<const int8_t*>(w_blocks),
         static_cast<const int32_t*>(u_senders), static_cast<const T*>(z),
@@ -575,8 +406,12 @@ int launch_b1(const void* job_offsets, const void* w_blocks,
               const void* l_rows, const void* c_rows, void* ddst,
               int num_tiles, int dcols, float slope, void* stream) {
   if (num_tiles > 0 && dcols > 0) {
-    const dim3 grid(num_tiles, SPLIT);
-    gat_bwd_b1_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    const auto kernel =
+        pick(row_vec<T>(dcols, (uintptr_t)g_rows, (uintptr_t)z),
+             gat_bwd_b1_kernel<T, 4>, gat_bwd_b1_kernel<T, 2>,
+             gat_bwd_b1_kernel<T, 1>);
+    kernel<<<num_tiles * (TN / WARPS), count_block::THREADS, 0,
+             (cudaStream_t)stream>>>(
         static_cast<const int32_t*>(job_offsets),
         static_cast<const int8_t*>(w_blocks),
         static_cast<const int32_t*>(u_senders),
@@ -596,25 +431,20 @@ int launch_b2(const void* job_offsets, const void* w_blocks,
               const void* c, void* dz, void* dsrc, int num_tiles, int dcols,
               float slope, void* stream) {
   if (num_tiles > 0 && dcols > 0) {
-    const int blocks = num_tiles * (TN / count_block::WARPS);
-    auto go = [&](auto kernel) {
-      kernel<<<blocks, count_block::THREADS, 0, (cudaStream_t)stream>>>(
-          static_cast<const int32_t*>(job_offsets),
-          static_cast<const int8_t*>(w_blocks),
-          static_cast<const int32_t*>(u_senders),
-          static_cast<const T*>(z_rows), static_cast<const float*>(src_rows),
-          static_cast<const float*>(g), static_cast<const float*>(dst),
-          static_cast<const float*>(m), static_cast<const float*>(l),
-          static_cast<const float*>(c), static_cast<T*>(dz),
-          static_cast<float*>(dsrc), dcols, slope);
-    };
-    const int v = b2_vec<T>(dcols, g, z_rows, dz);
-    if (v == 4)
-      go(gat_bwd_b2_kernel<T, 4>);
-    else if (v == 2)
-      go(gat_bwd_b2_kernel<T, 2>);
-    else
-      go(gat_bwd_b2_kernel<T, 1>);
+    const auto kernel = pick(
+        row_vec<T>(dcols, (uintptr_t)g, (uintptr_t)z_rows | (uintptr_t)dz),
+        gat_bwd_b2_kernel<T, 4>, gat_bwd_b2_kernel<T, 2>,
+        gat_bwd_b2_kernel<T, 1>);
+    kernel<<<num_tiles * (TN / WARPS), count_block::THREADS, 0,
+             (cudaStream_t)stream>>>(
+        static_cast<const int32_t*>(job_offsets),
+        static_cast<const int8_t*>(w_blocks),
+        static_cast<const int32_t*>(u_senders),
+        static_cast<const T*>(z_rows), static_cast<const float*>(src_rows),
+        static_cast<const float*>(g), static_cast<const float*>(dst),
+        static_cast<const float*>(m), static_cast<const float*>(l),
+        static_cast<const float*>(c), static_cast<T*>(dz),
+        static_cast<float*>(dsrc), dcols, slope);
   }
   return (int)cudaGetLastError();
 }
@@ -622,9 +452,8 @@ int launch_b2(const void* job_offsets, const void* w_blocks,
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Outputs are allocated by the
-// caller; ddst must be zeroed (K5's SDDMM quarters add into it), while K6
-// writes every element of dz and dsrc.  Each function returns
-// cudaGetLastError().
+// caller; every kernel writes every element of its outputs.  Each
+// function returns cudaGetLastError().
 #define GAT_DEDUP_API(SUFFIX, T)                                              \
   extern "C" int gat_fwd_##SUFFIX(                                            \
       const void* job_offsets, const void* w_blocks, const void* u_senders,   \

@@ -291,7 +291,8 @@ def gat_bwd_b1(job_offsets, w_blocks, u_senders, g_rows, z, dst_rows, src,
         "dst_rows": (dst_rows, (rows,), _F32), "src": (src, (n,), _F32),
         "m_rows": (m_rows, (rows,), _F32), "l_rows": (l_rows, (rows,), _F32),
         "c_rows": (c_rows, (rows,), _F32)}, dev)
-    ddst = torch.zeros(rows, dtype=torch.float32, device=dev)
+    # K5 writes every element (no atomics, no zeroed output)
+    ddst = torch.empty(rows, dtype=torch.float32, device=dev)
     fn = getattr(_load(), f"gat_bwd_b1_{_suffix(z.dtype)}")
     err = fn(job_offsets.data_ptr(), w_blocks.data_ptr(),
              u_senders.data_ptr(), g_rows.data_ptr(), z.data_ptr(),

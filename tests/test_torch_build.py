@@ -14,7 +14,7 @@ from gist_tpu_torch.ops import (dedup_spmm, gat_dedup, gat_tiled, split_spmm,
 MODULES = {"K1": dedup_spmm, "K2": split_spmm, "K3": tiled_spmm,
            "K4-K6": gat_dedup, "K7-K9": gat_tiled}
 # the kernels compiled with the count-block walk (K1, K2) or its list
-# step (K6, in the K4-K6 library)
+# step (K4, K5 and K6)
 COUNT_BLOCK = {"K1", "K2", "K4-K6"}
 CSRC = os.path.dirname(dedup_spmm.SOURCE)
 
@@ -78,7 +78,7 @@ def test_launch_shape_matches_header():
 
 @pytest.mark.parametrize("name", ["K1", "K2", "K4-K6"])
 def test_list_step_is_shared(name):
-    """K1, K2 and K6 build their lists of nonzero counts with the one
+    """K1, K2 and K4-K6 build their lists of nonzero counts with the one
     device function of ``count_block.cuh``; none keeps a copy of it."""
     with open(os.path.join(CSRC, "count_block.cuh"), encoding="utf-8") as fh:
         header = fh.read()
@@ -92,3 +92,45 @@ def test_list_step_is_shared(name):
         assert "count_block::list_nonzero(" in text
     else:
         assert "count_block::tile_spmm<" in text
+
+
+def _gat_dedup_source():
+    with open(gat_dedup.SOURCE, encoding="utf-8") as fh:
+        return fh.read()
+
+
+def _body(text, name):
+    """The text of the first definition of ``name(`` that has a body:
+    from its opening brace to the matching closing one."""
+    for found in re.finditer(rf"\b{name}\(", text):
+        start = text.index("{", found.end())
+        if ";" in text[found.end():start]:
+            continue                      # a call, not a definition
+        depth = 0
+        for i in range(start, len(text)):
+            depth += {"{": 1, "}": -1}.get(text[i], 0)
+            if depth == 0:
+                return text[start:i + 1]
+    raise AssertionError(f"no definition of {name}")
+
+
+@pytest.mark.parametrize("name", ["atomicAdd", "atomicMax", "sddmm_rowsum",
+                                  "fma_chunk", "stage_rows", "SDDMM_SMEM"])
+def test_gat_dedup_has_no_dense_blocks_or_atomics(name):
+    """K4, K5 and K6 walk the nonzero counts and store every output
+    element once: no atomics, none of the dense-block helpers."""
+    assert name not in _gat_dedup_source()
+
+
+@pytest.mark.parametrize("kernel", ["gat_fwd_kernel", "gat_bwd_b1_kernel",
+                                    "gat_bwd_b2_kernel"])
+def test_gat_dedup_kernels_walk_the_lists(kernel):
+    """Each of K4, K5 and K6 walks its rows through the one row walk of
+    ``gat_dedup.cu``, whose counts come from ``count_block.cuh``'s
+    ``load_counts`` and ``list_nonzero``."""
+    text = _gat_dedup_source()
+    walk = _body(text, "walk_row")
+    assert "count_block::list_nonzero(" in walk
+    assert "count_block::load_counts<" in walk
+    assert text.count("count_block::list_nonzero(") == 1
+    assert "walk_row(" in _body(text, kernel)

@@ -182,9 +182,10 @@ def _gat_inputs(d, n, heads, o, dtype, cuda, rng):
                                            (torch.bfloat16, 2, 64)])
 def test_gat_kernels_match_plain(cuda, case, dtype, heads, o):
     """K4, then K5 and K6 for head 0 on the forward's m and l, each
-    against its plain version on the same inputs: 1e-5 (K4) and 1e-4
-    (K5, whose row sums add four partial sums with atomics, and K6)
-    relative to the plain result's max in fp32, 1e-2 in bf16."""
+    against its plain version on the same inputs: 1e-5 (K4) and 1e-4 (K5
+    and K6, whose dot products and row sums run in another order than
+    the plain version's matrix products) relative to the plain result's
+    max in fp32, 1e-2 in bf16."""
     rng = np.random.default_rng(0)
     s, r, n = _edges(case, rng)
     d = _build_dedup_tiles(s, r, n, reorder=False)
@@ -236,6 +237,15 @@ def test_gat_kernels_match_plain(cuda, case, dtype, heads, o):
         x + 1 for x in before)
 
 
+def _nan_blocks(cuda, *specs):
+    """Allocate and free NaN-filled blocks of these (shape, dtype), so
+    that the next allocations of those sizes come back full of NaN and a
+    kernel that leaves an element unwritten shows."""
+    torch.cuda.synchronize()
+    for shape, dtype in specs:
+        torch.full(shape, float("nan"), dtype=dtype, device=cuda)
+
+
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("dtype,o", [(torch.float32, 1),
                                      (torch.float32, 37),
@@ -272,9 +282,7 @@ def test_gat_bwd_b2_matches_plain(cuda, case, dtype, o):
     args = (dt.job_offsets, dt.w_blocks, dt.u_senders, z_rows, src_rows, g,
             dst_rows[:n, 0].contiguous(), m[:n, 0].contiguous(),
             l[:n, 0].contiguous(), c, 0.2)
-    torch.cuda.synchronize()
-    for shape, kind in (((rows_t, o), dtype), ((rows_t,), torch.float32)):
-        torch.full(shape, float("nan"), dtype=kind, device=cuda)
+    _nan_blocks(cuda, ((rows_t, o), dtype), ((rows_t,), torch.float32))
     before = G.launches_b2
     dz, dsrc = G.gat_bwd_b2(*args)
     torch.cuda.synchronize()
@@ -288,6 +296,102 @@ def test_gat_bwd_b2_matches_plain(cuda, case, dtype, o):
     assert _rel(dz, wz) <= tol and _rel(dsrc, wsrc) <= tol
     if case == "empty_tiles":
         assert torch.all(dz[128:] == 0) and torch.all(dsrc[128:] == 0)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype,o", [(torch.float32, 1),
+                                     (torch.float32, 37),
+                                     (torch.float32, 41),
+                                     (torch.float32, 130),
+                                     (torch.float32, 257),
+                                     (torch.float32, 602),
+                                     (torch.bfloat16, 64)])
+def test_gat_bwd_b1_matches_plain(cuda, case, dtype, o):
+    """K5 on the forward layout (padding jobs, empty tiles) against its
+    plain version on the forward's m and l: 1e-4 relative to the plain
+    result's max in fp32, 1e-2 in bf16; two launches give the same bits;
+    every element of ddst is written (the wrapper allocates it with
+    ``torch.empty``: a block just freed full of NaN comes back)."""
+    rng = np.random.default_rng(6)
+    s, r, n = _edges(case, rng)
+    d = _build_dedup_tiles(s, r, n, reorder=False)
+    d = pad_dedup_tiles(d, int(d.w_blocks.shape[0]) + 3,
+                        d.max_jobs + 1).to(cuda)
+    z, src, dst_rows = _gat_inputs(d, n, 1, o, dtype, cuda, rng)
+    lay = (d.job_offsets, d.w_blocks, d.u_senders)
+    out, m, l = G.gat_fwd(*lay, z, src, dst_rows, 0.2)
+    rows = d.num_tiles * 128
+    g_rows = torch.from_numpy(
+        rng.standard_normal((rows, o)).astype(np.float32)).to(cuda)
+    c_rows = (out[:, 0].float() * g_rows).sum(1)
+    args = lay + (g_rows, z[:, 0].contiguous(), dst_rows[:, 0].contiguous(),
+                  src[:, 0].contiguous(), m[:, 0].contiguous(),
+                  l[:, 0].contiguous(), c_rows, 0.2)
+    _nan_blocks(cuda, ((rows,), torch.float32))
+    before = G.launches_b1
+    got = G.gat_bwd_b1(*args)
+    torch.cuda.synchronize()
+    assert G.launches_b1 == before + 1
+    assert got.dtype == torch.float32 and got.shape == (rows,)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, G.gat_bwd_b1(*args))
+    err = _rel(got, G.gat_bwd_b1_reference(*args))
+    assert err <= (1e-4 if dtype == torch.float32 else 1e-2), err
+    if case == "empty_tiles":
+        assert torch.all(got[128:] == 0)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype,heads,o", [
+    *[(torch.float32, h, o) for h in (1, 2, 3, 4)
+      for o in (37, 256, 257, 602)],
+    (torch.bfloat16, 2, 64), (torch.bfloat16, 3, 257)])
+def test_gat_fwd_matches_plain(cuda, case, dtype, heads, o):
+    """K4 (padding jobs, empty tiles, one to four heads) against its
+    plain version: out to 1e-5 relative to the plain result's max in
+    fp32 (1e-2 in bf16), l to 1e-5, m exact or to 1e-6; every element of
+    out, m and l is written (the wrapper allocates them with
+    ``torch.empty`` into blocks just freed full of NaN); two launches
+    give the same bits; a call with ``out=`` a slice of a larger
+    NaN-filled tensor (a chunk of the chunked layout) writes that slice
+    alone, with the same bits."""
+    rng = np.random.default_rng(7)
+    s, r, n = _edges(case, rng)
+    d = _build_dedup_tiles(s, r, n, reorder=False)
+    d = pad_dedup_tiles(d, int(d.w_blocks.shape[0]) + 3,
+                        d.max_jobs + 1).to(cuda)
+    z, src, dst_rows = _gat_inputs(d, n, heads, o, dtype, cuda, rng)
+    args = (d.job_offsets, d.w_blocks, d.u_senders, z, src, dst_rows, 0.2)
+    rows = d.num_tiles * 128
+    _nan_blocks(cuda, ((rows, heads, o), dtype),
+                ((rows, heads), torch.float32),
+                ((rows, heads), torch.float32))
+    before = G.launches_fwd
+    out, m, l = G.gat_fwd(*args)
+    torch.cuda.synchronize()
+    assert G.launches_fwd == before + 1
+    assert out.dtype == dtype and out.shape == (rows, heads, o)
+    for t in (out, m, l):
+        assert not torch.isnan(t.float()).any()
+    again = G.gat_fwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip((out, m, l), again))
+    w_out, w_m, w_l = G.gat_fwd_reference(*args)
+    assert _rel(out, w_out) <= (1e-5 if dtype == torch.float32 else 1e-2)
+    assert _rel(l, w_l) <= 1e-5
+    assert torch.equal(m, w_m) or _rel(m, w_m) <= 1e-6
+    if case == "empty_tiles":
+        assert torch.all(out[128:] == 0) and torch.all(l[128:] == 0)
+        assert torch.all(m[128:] == G.NEG_INF)
+
+    big = torch.full((3 * rows, heads, o), float("nan"), dtype=dtype,
+                     device=cuda)
+    res, m2, l2 = G.gat_fwd(*args, out=big[rows:2 * rows])
+    torch.cuda.synchronize()
+    assert res.data_ptr() == big[rows].data_ptr()
+    assert torch.equal(big[rows:2 * rows], out)
+    assert torch.equal(m2, m) and torch.equal(l2, l)
+    assert torch.isnan(big[:rows].float()).all()
+    assert torch.isnan(big[2 * rows:].float()).all()
 
 
 @pytest.mark.parametrize("heads,o", [(2, 24), (3, 8)])
