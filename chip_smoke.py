@@ -49,9 +49,11 @@ raising on failure:
     ``ClusterSampler(synth-reddit-small, 10, 4, tile_mode="gather")``
     and at the full synth-reddit-small graph's (the v1 main path's),
     with times beside the bound, ``torch.sparse.mm`` (K3) and the
-    segment composite (K7-K9); K3 also with its profiler time and two
-    launches held bitwise equal, and its launch plans side by side at
-    F=41, 47 and 256 on the full graph;
+    segment composite (K7-K9), and the rate of the rows each walk
+    gathers; K3, K7 and K8 also with their profiler time and two
+    launches held bitwise equal; K3's launch plans side by side at F=41,
+    47 and 256 on the full graph, and K7's and K8's at D=41 and 512
+    (phase ``v1_gat_plans``: every plan, in rounds);
 15. v1 reference: one GAT h512 (2 heads, 2 layers) and one GCN h256
     training run of two Adam steps on the full synth-reddit-small v1
     graph through K7-K9 or K3 and through the segment path must agree;
@@ -114,10 +116,46 @@ def phase_build():
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {mod.SOURCE}:\n{err}")
         os.replace(tmp, lib)
-        regs = [ln.strip() for ln in err.splitlines() if "registers" in ln]
+        entries = _ptxas_entries(err)
         emit({"phase": "build", "source": os.path.relpath(mod.SOURCE, HERE),
-              "ptxas": regs})
+              "instances": len(entries),
+              "registers": sorted({r for _, r, _ in entries}),
+              "spill_store_bytes": {k: b for k, _, b in entries if b},
+              "ptxas": [f"{k}: {r} registers" for k, r, _ in entries]})
     return time.time() - t0
+
+
+def _ptxas_entries(report):
+    """(instance, registers, spill store bytes) of each kernel instance in
+    nvcc's ``-Xptxas -v`` report, an instance named by its kernel and
+    template arguments (``tiled_gat_b1_kernel<f32,4,16,4,1>``)."""
+    import re
+    out, name, spill = [], None, 0
+    for ln in report.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", ln)
+        if found:
+            mangled, spill = found.group(1), 0
+            name = mangled
+            # a mangled identifier is its length, then its characters
+            end = mangled.find("_kernelI") + len("_kernel")
+            for size in range(len("_kernel"), end if end > 7 else 0):
+                if mangled[:end - size].endswith(str(size)):
+                    args = re.match(r"I(\w*?)EE?v", mangled[end:]).group(1)
+                    name = "{}<{}>".format(mangled[end - size:end], ",".join(
+                        ["bf16" if "bfloat16" in args else "f32"]
+                        * (args[:1] in "f1")
+                        + re.findall(r"L[ib](\d+)E", args)))
+                    break
+            continue
+        found = re.search(r"(\d+) bytes spill stores", ln)
+        if found:
+            spill = int(found.group(1))
+            continue
+        found = re.search(r"Used (\d+) registers", ln)
+        if found and name:
+            out.append((name, int(found.group(1)), spill))
+            name = None
+    return out
 
 
 def _call_ms(torch, fn, reps, warmup=2):
@@ -1185,13 +1223,16 @@ def _v1_layout_bytes(t):
 
 
 def _v1_row(torch, phase, name, case, got, want, tol, kernel, plain,
-            nbytes, flops, dtype, timers, plain_reps, kernel_name=None):
+            nbytes, flops, dtype, timers, plain_reps, gathered,
+            kernel_name=None):
     """Time a v1 kernel beside its plain version and the ``timers``
     (name -> function or None); raise unless every output is finite and
-    within ``tol`` of the plain result relative to its max.  With
-    ``kernel_name`` (a redesigned kernel) also its profiler time and
-    one-call time of the ``timers``, and raise unless two launches give
-    the same bits."""
+    within ``tol`` of the plain result relative to its max.  ``gathered``
+    is the bytes of the rows the walk reads per slot (real slots x row
+    bytes), printed with the rate at ``ms`` beside the bound, which
+    counts each byte once.  With ``kernel_name`` (a redesigned kernel)
+    also its profiler time and one-call time of the ``timers``, and
+    raise unless two launches give the same bits."""
     torch.cuda.synchronize()
     abs_err = rel_err = 0.0
     for a, b in zip(got, want):
@@ -1211,6 +1252,8 @@ def _v1_row(torch, phase, name, case, got, want, tol, kernel, plain,
               for k, fn in timers.items()},
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_bytes": nbytes, "useful_flops": flops}
+    row.update({"gathered_bytes": gathered,
+                "gathered_tb_s": gathered / row["ms"] / 1e9})
     if kernel_name:
         row.update({k.replace("_ms", "_call_ms"):
                     None if fn is None else _call_ms(torch, fn, reps=10)
@@ -1273,7 +1316,7 @@ def _v1_kernel_rows(torch, device, g, phase, k3_cases, gat_cases,
                 2 * e * f, dtype,
                 {"library_ms": _library_spmm(torch, g, dtype, device,
                                              direction == "bwd", x)},
-                plain_reps, kernel_name="tiled_spmm_kernel")
+                plain_reps, e * f * item, kernel_name="tiled_spmm_kernel")
     slope = 0.01
     tf, tt = gd.tiled, gd.tiled_t
     rows_f, rows_t = tf.num_tiles * tf.tile_rows, tt.num_tiles * tt.tile_rows
@@ -1304,7 +1347,7 @@ def _v1_kernel_rows(torch, device, g, phase, k3_cases, gat_cases,
             + rows_f * (d * item + 8), 2 * e * d, dtype,
             {"segment_ms": lambda: gat_attention_segment(gd, z, src, dst,
                                                          slope)},
-            plain_reps)
+            plain_reps, e * d * item, kernel_name="tiled_gat_fwd_kernel")
         b1 = (tf, z, src, dst, m, l, gg, slope)
         ds, _ = GT.gat_tiled_bwd_b1(*b1)
         b2 = (tt, ds, gg, src, dst, m, l, slope, dtype)
@@ -1322,7 +1365,8 @@ def _v1_kernel_rows(torch, device, g, phase, k3_cases, gat_cases,
             lambda: GT.gat_tiled_bwd_b1_reference(*b1),
             _v1_layout_bytes(tf) + n * d * (item + 4) + 2 * n * 4
             + rows_f * 12 + slots_f * 4, 2 * e * d, dtype,
-            {"segment_ms": seg_bwd}, plain_reps)
+            {"segment_ms": seg_bwd}, plain_reps, e * d * item,
+            kernel_name="tiled_gat_b1_kernel")
         rows[("K9", tag)] = _v1_row(
             torch, phase, "K9", tag, GT.gat_tiled_bwd_b2(*b2),
             GT.gat_tiled_bwd_b2_reference(*b2), tol,
@@ -1331,19 +1375,32 @@ def _v1_kernel_rows(torch, device, g, phase, k3_cases, gat_cases,
             _v1_layout_bytes(tt) + int(tt.tile_offsets[-1]) * 4
             + slots_f * 4 + n * d * 4 + 2 * n * 4 + rows_f * 8
             + rows_t * (d * item + 4), 2 * e * d, dtype,
-            {"segment_ms": seg_bwd}, plain_reps)
+            {"segment_ms": seg_bwd}, plain_reps, e * d * 4)
         del z, gg, leaves, seg_out
     torch.cuda.empty_cache()
     return rows
 
 
-def _v1_shape(phase, g):
+def _unique_share(torch, t, n_nodes):
+    """Unique (destination tile, sender) pairs over the real slots of a
+    v1 layout, as a share of them: the most that staging each tile's
+    sender rows once could cut the per-slot row gathers to."""
+    used = int(t.tile_offsets[-1])
+    rcv = t.receivers[:used].long()
+    real = rcv < t.num_tiles * t.tile_rows
+    keys = (rcv[real] // t.tile_rows) * n_nodes + t.senders[:used].long()[real]
+    return torch.unique(keys).numel() / max(int(real.sum()), 1)
+
+
+def _v1_shape(torch, phase, g):
     t, tt = g.tiled, g.tiled_t
     emit({"phase": phase, "nodes": g.n_nodes, "edges": g.n_edges,
           "tiles": t.num_tiles, "slots": int(t.tile_offsets[-1]),
           "slots_padded": t.senders.shape[0], "max_chunks": t.max_chunks,
           "tiles_t": tt.num_tiles, "slots_t": int(tt.tile_offsets[-1]),
-          "max_chunks_t": tt.max_chunks})
+          "max_chunks_t": tt.max_chunks,
+          "unique_tile_sender_share": _unique_share(torch, t, g.n_nodes),
+          "unique_tile_sender_share_t": _unique_share(torch, tt, g.n_nodes)})
 
 
 def phase_k3_plans(torch, device, g):
@@ -1394,6 +1451,71 @@ def phase_k3_plans(torch, device, g):
     return out
 
 
+def phase_v1_gat_plans(torch, device, g):
+    """K7's and K8's launch plans side by side on the full
+    synth-reddit-small v1 graph, fp32, at D=41 (odd rows, scalar loads)
+    and D=512 (float4 loads): every plan of each plan space
+    (``gat_tiled.plan_space``), each held against the chosen plan's
+    output (1e-5 relative to its max, m exactly; the chosen plan is held
+    against the plain walk in the v1 phases) and timed like the kernels,
+    every plan once a round over three rounds (``ms``: the median).
+    Returns the rows."""
+    import numpy as np
+
+    from gist_tpu_torch.ops import gat_tiled as GT
+
+    t = g.to(device).tiled
+    n = g.n_nodes
+    rng = np.random.default_rng(0)
+
+    def randn(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(device)
+    src, dst = randn(n), randn(n)
+    rows = []
+    for d in (41, 512):
+        z, gg = randn(n, d), randn(n, d)
+        fwd = GT.gat_tiled_fwd(t, z, src, dst, 0.01)
+        m, l = fwd[1], fwd[2]
+        b1 = GT.gat_tiled_bwd_b1(t, z, src, dst, m, l, gg, 0.01)
+        vec = GT.vec_width(d, 4, z.data_ptr(), fwd[0].data_ptr())
+        runs = []
+        for plan in GT.plan_space(d, vec, GT.FWD_MAX):
+            runs.append(("K7", {"plan": plan._asdict(),
+                                "chosen": plan == GT.fwd_plan(d, vec)},
+                         lambda p=plan: GT.run_fwd_plan(
+                             t, z, src, dst, 0.01, p), fwd))
+        for plan in GT.plan_space(d, vec, GT.B1_MAX):
+            runs.append(("K8", {"plan": plan._asdict(),
+                                "chosen": plan == GT.b1_plan(d, vec)},
+                         lambda p=plan: GT.run_b1_plan(
+                             t, z, src, dst, m, l, gg, 0.01, p), b1))
+        errs = []
+        for kernel, variant, fn, want in runs:
+            got = fn()
+            torch.cuda.synchronize()
+            errs.append(max(float((a - b).abs().max() / b.abs().max())
+                            for i, (a, b) in enumerate(zip(got, want))
+                            if not (kernel == "K7" and i == 1)))
+            if not errs[-1] <= 1e-5 or (kernel == "K7" and not torch.equal(
+                    got[1], want[1])):
+                raise RuntimeError(f"{kernel} {variant} at D={d} disagrees "
+                                   f"with the chosen plan: {errs[-1]}")
+        # every plan once a round, in turns, so drift falls on all alike
+        times = [[_kernel_ms(torch, fn) for _, _, fn, _ in runs]
+                 for _ in range(3)]
+        for i, (kernel, variant, _, _) in enumerate(runs):
+            row = {"phase": "v1_gat_plans", "kernel": kernel,
+                   "case": f"D={d} float32", **variant,
+                   "ms": statistics.median(t[i] for t in times),
+                   "ms_rounds": [t[i] for t in times],
+                   "rel_err_vs_chosen": errs[i]}
+            emit(row)
+            rows.append(row)
+        del z, gg
+    return rows
+
+
 def phase_v1_kernels(torch, device, ds):
     """K3 at F=602 and 256 fp32 and 256 bf16, K7-K9 at D=512 and 41 fp32
     and 512 bf16, on one batch of the gather-mode sampler (bucketed by
@@ -1406,7 +1528,7 @@ def phase_v1_kernels(torch, device, ds):
     g = sampler.make_batch(next(sampler.iter_node_ids())).graph
     if g.tiled is None or g.tiled_t is None or g.dedup is not None:
         raise RuntimeError("expected a v1 layout pair on the batch")
-    _v1_shape("v1_kernels", g)
+    _v1_shape(torch, "v1_kernels", g)
     return _v1_kernel_rows(
         torch, device, g, "v1_kernels",
         ((602, torch.float32), (256, torch.float32), (256, torch.bfloat16)),
@@ -1561,9 +1683,9 @@ def phase_v1_main_path(torch, ds, graph, layout_build_s):
               "peak_memory_bytes": peak, "launches": counts,
               "device_per_epoch": _device_split(
                   prof, tc.n_epochs, {"K3": "tiled_spmm_kernel",
-                                      "K7": "gat_fwd_kernel",
-                                      "K8": "gat_bwd_b1_kernel",
-                                      "K9": "gat_bwd_b2_kernel"}),
+                                      "K7": "tiled_gat_fwd_kernel",
+                                      "K8": "tiled_gat_b1_kernel",
+                                      "K9": "tiled_gat_b2_kernel"}),
               "device_note": "a second run under torch.profiler: busy "
                              "time of training and eval, per epoch"})
         e = tc.n_epochs
@@ -1650,7 +1772,7 @@ def main():
     v1_graph = graph_from_edges(ds_r.senders, ds_r.receivers, ds_r.n_nodes,
                                 tiles=True, tile_mode="gather")
     v1_build_s = time.time() - t0
-    _v1_shape("v1_full_graph", v1_graph)
+    _v1_shape(torch, "v1_full_graph", v1_graph)
     emit({"phase": "v1_full_graph", "graph_build_s": v1_build_s})
     v1_rows = _v1_kernel_rows(
         torch, device, v1_graph, "v1_full_graph",
@@ -1661,6 +1783,10 @@ def main():
     t0 = time.time()
     phase_k3_plans(torch, device, v1_graph)
     emit({"phase": "k3_plans", "seconds": time.time() - t0})
+
+    t0 = time.time()
+    phase_v1_gat_plans(torch, device, v1_graph)
+    emit({"phase": "v1_gat_plans", "seconds": time.time() - t0})
 
     t0 = time.time()
     v1_graph = v1_graph.to(device)
@@ -1779,14 +1905,20 @@ def main():
             "bound_by": main_row["bound_by"],
             "library_ms": main_row.get("library_ms"),
             **{k: main_row[k] for k in ("segment_ms", "library_call_ms",
-                                        "profiler_ms", "bitwise_repeat")
+                                        "profiler_ms", "bitwise_repeat",
+                                        "gathered_tb_s")
                if k in main_row},
             **({"narrow_f": {
                 d: {k: v1_rows[("K3", f"{d} F=41 float32")][k] for k in (
                     "ms", "call_ms", "library_ms", "library_call_ms",
                     "bound_ms", "bound_by", "max_abs_err", "rel_err",
-                    "profiler_ms", "bitwise_repeat")}
-                for d in ("fwd", "bwd")}} if key == "K3" else {})})
+                    "profiler_ms", "bitwise_repeat", "gathered_tb_s")}
+                for d in ("fwd", "bwd")}} if key == "K3" else {}),
+            **({"narrow_d": {k: v1_rows[(key, "D=41 float32")][k] for k in (
+                "ms", "call_ms", "plain_ms", "segment_ms", "bound_ms",
+                "bound_by", "max_abs_err", "rel_err", "profiler_ms",
+                "bitwise_repeat", "gathered_tb_s")}}
+               if key in ("K7", "K8") else {})})
     emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.time() - t_all})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

@@ -1,5 +1,5 @@
-// The row walk shared by the v1 gather-layout kernels for Hopper (sm_90a):
-// K3 (tiled_spmm.cu) and K7-K9 (gat_tiled.cu).
+// The row walks shared by the v1 gather-layout kernels for Hopper
+// (sm_90a): K3 (tiled_spmm.cu) and K7-K9 (gat_tiled.cu).
 //
 // Layout (TiledCSR): destination tile i owns the slots tile_offsets[i] ..
 // tile_offsets[i+1]-1, which hold its receiver-sorted edges (sender,
@@ -9,13 +9,18 @@
 // here by two binary searches over the tile's receivers.  Slots past
 // tile_offsets[-1] are never read.
 //
-// One warp owns one destination row (WARPS rows per block).  The lanes
-// run over the feature columns, a block column covering FC of them with
-// ACC fp32 accumulators per lane; feature rows are gathered by index
-// inside the kernel with V-element vector loads, so no per-slot message
-// array exists in device memory.  A row's slots are visited in order and
-// summed in registers, and each output row is stored once: no atomics,
-// and the result does not depend on the schedule.
+// Two walks.  walk_groups (K3, K7, K8) cuts the lanes of a warp into
+// groups of G lanes, each lane holding C vectors of V elements of a row
+// (GroupCols), and either gives each group a row of its own (rows mode)
+// or puts the groups of one warp on successive slots of one row (edges
+// mode); the launch plan (mode, G, C, V) is chosen on the host.
+// gather_rows (K9) is the first walk of the port: one warp per row, the
+// lanes over FC columns of a block column with ACC accumulators each.
+// Feature rows are gathered by index inside the kernel with V-element
+// vector loads, so no per-slot message array exists in device memory.  A
+// row's slots are visited in a fixed order and summed in registers, and
+// each output row is stored once: no atomics, and the result does not
+// depend on the schedule.
 
 #pragma once
 
@@ -27,8 +32,8 @@ namespace tiled_rows {
 
 constexpr int WARPS = 8;              // destination rows per block
 constexpr int THREADS = 32 * WARPS;
-constexpr int ACC = 8;                // fp32 accumulators per lane
-constexpr int FC = 32 * ACC;          // feature columns per block column
+constexpr int ACC = 8;                // gather_rows: fp32 accumulators
+constexpr int FC = 32 * ACC;          // and columns of a block column
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG_INF = -1e30f;
 
@@ -77,12 +82,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
 struct Slots {
   int64_t begin, end;
 };
@@ -111,17 +110,186 @@ __device__ __forceinline__ Slots row_slots(
   return {b, lower_bound(receivers, b, hi, row + 1)};
 }
 
-// acc[q*V + k] += w_e * rows[s_e, f0 + (q*32 + lane)*V + k] over the
-// row's slots e in order, with s_e = senders[e] and w_e = weight(s_e).
+// v summed (or maxed) over the W lanes of its aligned segment of the warp
+// (W a power of two), by a fixed xor tree: every lane of the segment gets
+// the same bits.
+template <int W>
+__device__ __forceinline__ float seg_sum(float v) {
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o, W);
+  return v;
+}
+
+template <int W>
+__device__ __forceinline__ float seg_max(float v) {
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, o, W));
+  return v;
+}
+
+// A lane's columns of one block column of G * C * V: with gl = lane % G,
+// vector q < C holds the columns base + q * G * V + 0 .. V-1, base =
+// f0 + gl * V; has[q] says whether it lies inside the row's ncols.  The
+// methods take p, a row's pointer already advanced by base, so a walk
+// forms it once a slot from a pointer hoisted out of the loop.
+template <int V, int G, int C>
+struct GroupCols {
+  int base;
+  bool has[C];
+  __device__ __forceinline__ GroupCols(int f0, int gl, int ncols)
+      : base(f0 + gl * V) {
+#pragma unroll
+    for (int q = 0; q < C; ++q) has[q] = base + q * G * V < ncols;
+  }
+  // acc += the lane's columns
+  template <typename T>
+  __device__ __forceinline__ void add(const T* p, float* acc) const {
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      if (!has[q]) continue;
+      float v[V];
+      load_vec<T, V>(p + q * G * V, v);
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[q * V + k] += v[k];
+    }
+  }
+  // acc += w * the lane's columns
+  template <typename T>
+  __device__ __forceinline__ void fma(const T* p, float w,
+                                      float* acc) const {
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      if (!has[q]) continue;
+      float v[V];
+      load_vec<T, V>(p + q * G * V, v);
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        acc[q * V + k] = fmaf(w, v[k], acc[q * V + k]);
+    }
+  }
+  // the lane's share of the row's dot with g, g its columns of another
+  template <typename T>
+  __device__ __forceinline__ float dot(const T* p, const float* g) const {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      if (!has[q]) continue;
+      float v[V];
+      load_vec<T, V>(p + q * G * V, v);
+#pragma unroll
+      for (int k = 0; k < V; ++k) s = fmaf(v[k], g[q * V + k], s);
+    }
+    return s;
+  }
+  // v = the lane's columns (0 outside the row)
+  template <typename T>
+  __device__ __forceinline__ void load(const T* p, float* v) const {
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      if (has[q]) {
+        load_vec<T, V>(p + q * G * V, v + q * V);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) v[q * V + k] = 0.f;
+      }
+    }
+  }
+  template <typename T>
+  __device__ __forceinline__ void store(T* p, const float* v) const {
+#pragma unroll
+    for (int q = 0; q < C; ++q)
+      if (has[q]) store_vec<T, V>(p + q * G * V, v + q * V);
+  }
+};
+
+// The walk of one warp over the slots of its rows, its lanes in groups of
+// G (lane gl = lane % G of group grp = lane / G, NG = 32 / G groups).
+//   ROWS: group grp owns the row whose slots are sl (each group its own;
+//     a group without a row passes an empty range).  It takes them G a
+//     step, lane gl holding slot e0 + gl; the warp steps as long as its
+//     longest row.  The lanes that share a batch: the group (width G).
+//   edges: the warp owns the row sl and takes its slots 32 a batch, lane
+//     holding slot e0 + lane; group grp visits slots i * NG + grp of the
+//     batch, i < G.  The lanes that share a batch: the warp (width 32).
+// For each batch every lane calls
+//   batch(live, e, s): live says whether the lane holds a slot, e its
+//     index and s its sender (0 where not live); it may shuffle across
+//     the lanes that share the batch;
+// then, for each slot of the batch that its group visits, every lane calls
+//   use(sk, k, valid): sk is the sender of the slot held by lane k of the
+//     batch's width (k < G in rows mode, k < 32 in edges mode), valid
+//     whether that slot exists; it may shuffle across the warp;
+// and after the batch, every lane calls done(live, e, s).
+// A row's slots are visited in order, the same order on every launch.
+template <int G, bool ROWS, typename Batch, typename Use, typename Done>
+__device__ __forceinline__ void walk_groups(
+    const int32_t* __restrict__ senders, Slots sl, int lane,
+    const Batch& batch, const Use& use, const Done& done) {
+  constexpr int NG = 32 / G;
+  if constexpr (ROWS) {
+    const int gl = lane % G;
+    const int steps = (int)__reduce_max_sync(
+        FULL, (unsigned)((sl.end - sl.begin + G - 1) / G));
+    for (int st = 0; st < steps; ++st) {
+      const int64_t e0 = sl.begin + (int64_t)st * G;
+      const int64_t left = sl.end - e0;
+      const int cnt = left <= 0 ? 0 : left < G ? (int)left : G;
+      const bool live = gl < cnt;
+      const int s = live ? __ldg(senders + e0 + gl) : 0;
+      batch(live, e0 + gl, s);
+#pragma unroll
+      for (int k = 0; k < G; ++k) use(__shfl_sync(FULL, s, k, G), k, k < cnt);
+      done(live, e0 + gl, s);
+    }
+  } else {
+    const int grp = lane / G;
+    for (int64_t e0 = sl.begin; e0 < sl.end; e0 += 32) {
+      const int cnt = sl.end - e0 < 32 ? (int)(sl.end - e0) : 32;
+      const bool live = lane < cnt;
+      const int s = live ? __ldg(senders + e0 + lane) : 0;
+      batch(live, e0 + lane, s);
+      if (cnt == 32) {
+#pragma unroll 4
+        for (int i = 0; i < G; ++i) {
+          const int k = i * NG + grp;
+          use(__shfl_sync(FULL, s, k), k, true);
+        }
+      } else {
+        for (int i = 0; i * NG < cnt; ++i) {
+          const int k = i * NG + grp;
+          use(__shfl_sync(FULL, s, k), k, k < cnt);
+        }
+      }
+      done(live, e0 + lane, s);
+    }
+  }
+}
+
+// Edges mode's end: acc summed over the warp's groups by a fixed tree of
+// xor shuffles, so every group holds the row's sums.
+template <int G, int N>
+__device__ __forceinline__ void sum_groups(float* acc) {
+#pragma unroll
+  for (int o = G; o < 32; o <<= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[i] += __shfl_xor_sync(FULL, acc[i], o);
+}
+
+struct Nothing {
+  template <typename... A>
+  __device__ __forceinline__ void operator()(A...) const {}
+};
+
+// K9's walk: acc[q*V + k] += w_e * rows[s_e, f0 + (q*32 + lane)*V + k]
+// over the row's slots e in order, with s_e = senders[e] and w_e = weight(s_e).
 // Slots go in groups of 32: lane k loads slot k's sender and weight, then
-// the warp walks the group with both broadcast.  Returns the sum of the
-// weights this lane evaluated.
+// the warp walks the group with both broadcast.
 template <typename T, int V, typename Weight>
-__device__ __forceinline__ float gather_rows(
+__device__ __forceinline__ void gather_rows(
     const int32_t* __restrict__ senders, const T* __restrict__ rows,
     int ncols, int f0, Slots sl, int lane, const Weight& weight,
     float* acc) {
-  float wsum = 0.f;
   for (int64_t e0 = sl.begin; e0 < sl.end; e0 += 32) {
     const int cnt = sl.end - e0 < 32 ? (int)(sl.end - e0) : 32;
     int s = 0;
@@ -129,7 +297,6 @@ __device__ __forceinline__ float gather_rows(
     if (lane < cnt) {
       s = __ldg(senders + e0 + lane);
       w = weight(s);
-      wsum += w;
     }
 #pragma unroll 4
     for (int k = 0; k < cnt; ++k) {
@@ -149,24 +316,16 @@ __device__ __forceinline__ float gather_rows(
       }
     }
   }
-  return wsum;
 }
 
-// out_row[f0 + ...] = acc / div, or 0 where div is 0.
+// out_row[f0 + ...] = acc, the lane's columns of gather_rows.
 template <typename T, int V>
 __device__ __forceinline__ void store_row(T* __restrict__ out_row, int ncols,
-                                          int f0, int lane, const float* acc,
-                                          float div) {
+                                          int f0, int lane, const float* acc) {
 #pragma unroll
   for (int q = 0; q < ACC / V; ++q) {
     const int col = (q * 32 + lane) * V;
-    if (f0 + col < ncols) {
-      float v[V];
-#pragma unroll
-      for (int kk = 0; kk < V; ++kk)
-        v[kk] = div > 0.f ? acc[q * V + kk] / div : 0.f;
-      store_vec<T, V>(out_row + f0 + col, v);
-    }
+    if (f0 + col < ncols) store_vec<T, V>(out_row + f0 + col, acc + q * V);
   }
 }
 

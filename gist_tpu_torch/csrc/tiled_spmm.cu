@@ -17,7 +17,9 @@
 // registers, so the work is the useful one.  Its hi/lo bf16 split of fp32
 // messages and its f-tile choice have no counterpart.
 //
-// Design: the lanes of a warp are cut into groups of G lanes (8 or 16).  A lane holds C vectors of V elements of a row, columns
+// Design: the lanes of a warp are cut into groups of G lanes (8 or 16),
+// walked by tiled_rows.cuh's walk_groups.  A lane holds C vectors of V
+// elements of a row, columns
 // (q * G + lane % G) * V + k for q < C, k < V, so a group covers
 // G * C * V columns of a block column (blockIdx.y).  The launch plan
 // (mode, G, C, V) is chosen on the host from F and the alignment
@@ -65,85 +67,28 @@ tiled_spmm_kernel(const int32_t* __restrict__ tile_offsets,
                   const T* __restrict__ x, T* __restrict__ out, int n_rows,
                   int tile_rows, int f) {
   constexpr int NG = 32 / G;          // groups of a warp
-  constexpr int SPAN = G * C * V;     // columns of a block column
   const int lane = threadIdx.x % 32;
-  const int gl = lane % G;
   const int grp = lane / G;
   const int warp = blockIdx.x * WARPS + threadIdx.x / 32;
-  const int f0 = blockIdx.y * SPAN;
-  const T* xs = x + f0 + gl * V;
-  bool has[C];
-#pragma unroll
-  for (int q = 0; q < C; ++q) has[q] = f0 + (q * G + gl) * V < f;
+  const GroupCols<V, G, C> cols(blockIdx.y * G * C * V, lane % G, f);
+  const T* xs = x + cols.base;
+  const int row = ROWS ? warp * NG + grp : warp;
+  if (!ROWS && row >= n_rows) return;  // the whole warp
+  const Slots sl = row < n_rows
+                       ? row_slots(tile_offsets, receivers, row, tile_rows)
+                       : Slots{0, 0};
   float acc[C * V];
 #pragma unroll
   for (int i = 0; i < C * V; ++i) acc[i] = 0.f;
-
-  // acc += the x row s (this lane's columns)
-  auto add_row = [&](int64_t s) {
-    const T* p = xs + s * f;
-#pragma unroll
-    for (int q = 0; q < C; ++q) {
-      if (!has[q]) continue;
-      float v[V];
-      load_vec<T, V>(p + q * G * V, v);
-#pragma unroll
-      for (int k = 0; k < V; ++k) acc[q * V + k] += v[k];
-    }
-  };
-  auto store = [&](int row) {
-    T* o = out + (int64_t)row * f + f0 + gl * V;
-#pragma unroll
-    for (int q = 0; q < C; ++q)
-      if (has[q]) store_vec<T, V>(o + q * G * V, acc + q * V);
-  };
-
-  if constexpr (ROWS) {
-    const int row = warp * NG + grp;
-    const Slots sl = row < n_rows
-                         ? row_slots(tile_offsets, receivers, row, tile_rows)
-                         : Slots{0, 0};
-    // the warp steps as long as its longest row, G slots a step
-    const int steps = (int)__reduce_max_sync(
-        FULL, (unsigned)((sl.end - sl.begin + G - 1) / G));
-    for (int st = 0; st < steps; ++st) {
-      const int64_t e0 = sl.begin + (int64_t)st * G;
-      const int64_t left = sl.end - e0;
-      const int cnt = left <= 0 ? 0 : left < G ? (int)left : G;
-      const int s = gl < cnt ? __ldg(senders + e0 + gl) : 0;
-#pragma unroll
-      for (int k = 0; k < G; ++k) {
-        const int sk = __shfl_sync(FULL, s, k, G);
-        if (k < cnt) add_row(sk);
-      }
-    }
-    if (row < n_rows) store(row);
-  } else {
-    const int row = warp;
-    if (row >= n_rows) return;  // the whole warp
-    const Slots sl = row_slots(tile_offsets, receivers, row, tile_rows);
-    for (int64_t e0 = sl.begin; e0 < sl.end; e0 += 32) {
-      const int cnt = sl.end - e0 < 32 ? (int)(sl.end - e0) : 32;
-      const int s = lane < cnt ? __ldg(senders + e0 + lane) : 0;
-      if (cnt == 32) {
-#pragma unroll 4
-        for (int i = 0; i < G; ++i)
-          add_row(__shfl_sync(FULL, s, i * NG + grp));
-      } else {
-        for (int i = 0; i * NG < cnt; ++i) {
-          const int k = i * NG + grp;
-          const int sk = __shfl_sync(FULL, s, k);
-          if (k < cnt) add_row(sk);
-        }
-      }
-    }
-#pragma unroll
-    for (int o = G; o < 32; o <<= 1)
-#pragma unroll
-      for (int i = 0; i < C * V; ++i)
-        acc[i] += __shfl_xor_sync(FULL, acc[i], o);
-    if (grp == 0) store(row);
-  }
+  walk_groups<G, ROWS>(
+      senders, sl, lane, Nothing{},
+      [&](int sk, int, bool valid) {
+        if (valid) cols.add(xs + (int64_t)sk * f, acc);
+      },
+      Nothing{});
+  if constexpr (!ROWS) sum_groups<G, C * V>(acc);
+  if (ROWS ? row < n_rows : grp == 0)
+    cols.store(out + (int64_t)row * f + cols.base, acc);
 }
 
 struct Args {

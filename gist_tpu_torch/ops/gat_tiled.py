@@ -15,7 +15,10 @@ and per-row arrays over the layout's ``num_tiles * tile_rows`` rows.
 Each launches its kernel for CUDA tensors (or raises) and runs its plain
 version (the TPU kernel's walk over tiles and chunk-slot blocks) for CPU
 tensors; ``launches_fwd``, ``launches_b1`` and ``launches_b2`` count the
-launches.
+launches.  K7 and K8 launch with a plan chosen on the host from D and
+the alignment (:func:`fwd_plan`, :func:`b1_plan`), as K3 does;
+:func:`run_fwd_plan` and :func:`run_b1_plan` launch another plan for a
+measurement.
 
 :func:`gat_attention_tiled` is differentiable.  Its backward runs K8 on
 the forward layout, then K9 on the transpose layout, when the backward
@@ -36,8 +39,8 @@ from gist_tpu_torch.graph import Graph, TiledCSR
 from gist_tpu_torch.ops import dedup_spmm, gat_dedup
 from gist_tpu_torch.ops.gat_dedup import (_F32, _FEAT, NEG_INF, _check,
                                           _device, _lrelu, _suffix)
-from gist_tpu_torch.ops.tiled_spmm import (check_layout, local_rows,
-                                            tile_chunks)
+from gist_tpu_torch.ops.tiled_spmm import (Plan, check_layout, local_rows,
+                                            tile_chunks, vec_width)
 
 SOURCE = os.path.join(os.path.dirname(dedup_spmm.SOURCE), "gat_tiled.cu")
 
@@ -45,6 +48,14 @@ launches_fwd = 0
 launches_b1 = 0
 launches_b2 = 0
 _lib = None
+
+# the kernels' instances (csrc/gat_tiled.cu): lanes per group, vectors a
+# lane, and the fp32 values a lane may hold (K7's accumulators, K8's
+# columns of G_r)
+GROUPS = (16, 8)
+PER_LANE = (1, 2, 3, 4, 6, 8)
+FWD_MAX = 8
+B1_MAX = 16
 
 
 def reset_launches() -> None:
@@ -56,13 +67,75 @@ def _load():
     global _lib
     if _lib is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        sigs = {"gat_tiled_fwd": [p] * 9 + [i, i, i, f, p],
-                "gat_tiled_bwd_b1": [p] * 11 + [i, i, i, f, p],
+        sigs = {"gat_tiled_fwd": [p] * 9 + [i, i, i, f] + [i] * 4 + [p],
+                "gat_tiled_bwd_b1": [p] * 11 + [i, i, i, f] + [i] * 4 + [p],
                 "gat_tiled_bwd_b2": [p] * 12 + [i, i, i, f, p]}
         _lib = dedup_spmm.load_library(SOURCE, {
             f"{name}_{suffix}": args for name, args in sigs.items()
             for suffix in ("f32", "bf16")})
     return _lib
+
+
+# ---------------------------------------------------------------------------
+# Launch plans of K7 and K8
+# ---------------------------------------------------------------------------
+
+
+def _per_lane(nv: int, group: int, vec: int, most: int) -> int:
+    """The fewest vectors a lane, among the kernel's instances, that
+    cover ``nv`` vectors with ``group`` lanes; at most ``most`` fp32
+    values a lane."""
+    cap = max(c for c in PER_LANE if c * vec <= most)
+    return min([c for c in PER_LANE if c >= -(-nv // group)] + [cap])
+
+
+def _group(nv: int, vec: int, most: int) -> int:
+    """Groups of 8 lanes where 8 lanes can hold a row of ``nv`` vectors
+    (at most ``most`` values a lane), else 16."""
+    return 8 if nv <= 8 * _per_lane(nv, 8, vec, most) else 16
+
+
+def fwd_plan(d: int, vec: int) -> Plan:
+    """The plan K7 launches at width ``d`` with ``vec``-element loads:
+    one warp per row with its groups on successive slots, groups of 8
+    lanes where 8 lanes can hold the row within ``FWD_MAX`` accumulators
+    a lane, else 16, each lane holding the fewest vectors that cover the
+    row (a wider row takes one block column per ``span`` columns).
+    Chosen by measurement on an H100 (``chip_smoke.py`` phase
+    ``v1_gat_plans``; PERF.md): at D=41 this plan (8 lanes) was the
+    fastest by 14%; at D=512 (16 lanes, four block columns of 128) it
+    was the fastest of the plan space in three runs out of three, 0.7-0.8%
+    ahead of the next."""
+    nv = -(-d // vec)
+    group = _group(nv, vec, FWD_MAX)
+    return Plan(False, group, _per_lane(nv, group, vec, FWD_MAX), vec)
+
+
+def plan_space(d: int, vec: int, most: int) -> list:
+    """Every plan with an instance at width ``d`` and ``vec``-element
+    loads whose lanes hold at most ``most`` values and no more vectors
+    than cover the row: both modes, groups of 8 and 16 lanes, from one
+    vector a lane to the fewest that cover the row (the plans a
+    measurement compares)."""
+    nv = -(-d // vec)
+    return [Plan(rows, group, c, vec) for rows in (False, True)
+            for group in GROUPS for c in PER_LANE
+            if c <= _per_lane(nv, group, vec, most)]
+
+
+def b1_plan(d: int, vec: int) -> Plan:
+    """The plan K8 launches at width ``d`` with ``vec``-element loads:
+    each group of lanes on a row of its own, groups of 8 lanes where 8
+    lanes can hold the row's G_r within ``B1_MAX`` values a lane, else
+    16, each lane holding the fewest vectors that cover the row (a wider
+    row is walked once per chunk of ``span`` columns).  Chosen by
+    measurement on an H100 (``chip_smoke.py`` phase ``v1_gat_plans``;
+    PERF.md): rows mode won at D=41 (8 lanes) and at D=512 (16 lanes,
+    two chunks of 256), where all of G_r in 32 values a lane had lost
+    1.6x to register pressure."""
+    nv = -(-d // vec)
+    group = _group(nv, vec, B1_MAX)
+    return Plan(True, group, _per_lane(nv, group, vec, B1_MAX), vec)
 
 
 # ---------------------------------------------------------------------------
@@ -192,13 +265,32 @@ def _stream(dev):
 def gat_tiled_fwd(t: TiledCSR, z, src, dst, negative_slope: float):
     """K7: (out (rows, D) in z's dtype, m, l (rows,) fp32) from z (N, D)
     and the score halves src, dst (N,) fp32."""
-    global launches_fwd
     if _device(z, "gat_tiled_fwd").type == "cpu":
         return gat_tiled_fwd_reference(t, z, src, dst, negative_slope)
-    dev = z.device
+    return run_fwd_plan(t, z, src, dst, negative_slope, None)
+
+
+def _cuda(name, z):
+    if z.device.type != "cuda":
+        raise ValueError(f"{name} launches on cuda tensors, not {z.device}")
     if z.dim() != 2:
-        raise ValueError(f"gat_tiled_fwd expects z (N, D), got "
-                         f"{tuple(z.shape)}")
+        raise ValueError(f"{name} expects z (N, D), got {tuple(z.shape)}")
+    return z.device
+
+
+def _plan_vec(name, plan, vec):
+    if vec % plan.vec:
+        raise ValueError(f"{name}: plan {plan} needs {plan.vec}-element "
+                         f"alignment; D and the tensors allow {vec}")
+    return plan
+
+
+def run_fwd_plan(t: TiledCSR, z, src, dst, negative_slope: float, plan):
+    """One K7 launch on CUDA tensors with ``plan`` (None:
+    :func:`fwd_plan`'s).  The path calls it through
+    :func:`gat_tiled_fwd`; a measurement may pass another plan."""
+    global launches_fwd
+    dev = _cuda("gat_tiled_fwd", z)
     n, d = z.shape
     check_layout("gat_tiled_fwd", t, dev)
     _check("gat_tiled_fwd", (), {"z": (z, z.shape, _FEAT),
@@ -208,13 +300,18 @@ def gat_tiled_fwd(t: TiledCSR, z, src, dst, negative_slope: float):
     out = torch.empty((rows, d), dtype=z.dtype, device=dev)
     m = torch.empty(rows, dtype=torch.float32, device=dev)
     l = torch.empty(rows, dtype=torch.float32, device=dev)
+    vec = vec_width(d, z.element_size(), z.data_ptr(), out.data_ptr())
+    plan = fwd_plan(d, vec) if plan is None else \
+        _plan_vec("gat_tiled_fwd", plan, vec)
     fn = getattr(_load(), f"gat_tiled_fwd_{_suffix(z.dtype)}")
     err = fn(t.tile_offsets.data_ptr(), t.senders.data_ptr(),
              t.receivers.data_ptr(), z.data_ptr(), src.data_ptr(),
              dst.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
-             rows, t.tile_rows, d, float(negative_slope), _stream(dev))
+             rows, t.tile_rows, d, float(negative_slope), int(plan.rows),
+             plan.group, plan.per_lane, plan.vec, _stream(dev))
     if err:
-        raise RuntimeError(f"gat_tiled_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"gat_tiled_fwd launch failed with plan {plan}: "
+                           f"CUDA error {err}")
     launches_fwd += 1
     return out, m, l
 
@@ -223,14 +320,19 @@ def gat_tiled_bwd_b1(t: TiledCSR, z, src, dst, m, l, g,
                      negative_slope: float):
     """K8: (ds (E_t,), ddst (rows,)) fp32 over the forward layout; z
     (N, D), src, dst (N,) fp32, m, l (rows,) fp32, g (N, D) fp32."""
-    global launches_b1
     if _device(z, "gat_tiled_bwd_b1").type == "cpu":
         return gat_tiled_bwd_b1_reference(t, z, src, dst, m, l, g,
                                           negative_slope)
-    dev = z.device
-    if z.dim() != 2:
-        raise ValueError(f"gat_tiled_bwd_b1 expects z (N, D), got "
-                         f"{tuple(z.shape)}")
+    return run_b1_plan(t, z, src, dst, m, l, g, negative_slope, None)
+
+
+def run_b1_plan(t: TiledCSR, z, src, dst, m, l, g, negative_slope: float,
+                plan):
+    """One K8 launch on CUDA tensors with ``plan`` (None:
+    :func:`b1_plan`'s).  The path calls it through
+    :func:`gat_tiled_bwd_b1`; a measurement may pass another plan."""
+    global launches_b1
+    dev = _cuda("gat_tiled_bwd_b1", z)
     n, d = z.shape
     rows = t.num_tiles * t.tile_rows
     check_layout("gat_tiled_bwd_b1", t, dev)
@@ -238,6 +340,10 @@ def gat_tiled_bwd_b1(t: TiledCSR, z, src, dst, m, l, g,
         "z": (z, z.shape, _FEAT), "src": (src, (n,), _F32),
         "dst": (dst, (n,), _F32), "m": (m, (rows,), _F32),
         "l": (l, (rows,), _F32), "g": (g, (n, d), _F32)}, dev)
+    vec = min(vec_width(d, z.element_size(), z.data_ptr()),
+              vec_width(d, 4, g.data_ptr()))
+    plan = b1_plan(d, vec) if plan is None else \
+        _plan_vec("gat_tiled_bwd_b1", plan, vec)
     ds = torch.zeros(t.senders.shape[0], dtype=torch.float32, device=dev)
     ddst = torch.empty(rows, dtype=torch.float32, device=dev)
     fn = getattr(_load(), f"gat_tiled_bwd_b1_{_suffix(z.dtype)}")
@@ -245,10 +351,11 @@ def gat_tiled_bwd_b1(t: TiledCSR, z, src, dst, m, l, g,
              t.receivers.data_ptr(), z.data_ptr(), src.data_ptr(),
              dst.data_ptr(), m.data_ptr(), l.data_ptr(), g.data_ptr(),
              ds.data_ptr(), ddst.data_ptr(), rows, t.tile_rows, d,
-             float(negative_slope), _stream(dev))
+             float(negative_slope), int(plan.rows), plan.group,
+             plan.per_lane, plan.vec, _stream(dev))
     if err:
-        raise RuntimeError(f"gat_tiled_bwd_b1 launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"gat_tiled_bwd_b1 launch failed with plan "
+                           f"{plan}: CUDA error {err}")
     launches_b1 += 1
     return ds, ddst
 

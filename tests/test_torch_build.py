@@ -134,3 +134,56 @@ def test_gat_dedup_kernels_walk_the_lists(kernel):
     assert "count_block::load_counts<" in walk
     assert text.count("count_block::list_nonzero(") == 1
     assert "walk_row(" in _body(text, kernel)
+
+
+def _read(path):
+    with open(path, encoding="utf-8") as fh:
+        return fh.read()
+
+
+def _call(text, name):
+    """The text of the first call ``name(...)`` in ``text``: from its
+    opening parenthesis to the matching closing one."""
+    start = text.index(f"{name}(") + len(name)
+    depth = 0
+    for i in range(start, len(text)):
+        depth += {"(": 1, ")": -1}.get(text[i], 0)
+        if depth == 0:
+            return text[start:i + 1]
+    raise AssertionError(f"no call of {name}")
+
+
+@pytest.mark.parametrize("name", ["atomicAdd", "atomicMax"])
+def test_gat_tiled_has_no_atomics(name):
+    """K7-K9 and the walks they share store every output element once,
+    without atomics."""
+    text = _read(gat_tiled.SOURCE)
+    header = _read(os.path.join(CSRC, "tiled_rows.cuh"))
+    assert name not in text and name not in header
+
+
+@pytest.mark.parametrize("kernel,source", [
+    ("tiled_spmm_kernel", tiled_spmm.SOURCE),
+    ("tiled_gat_fwd_kernel", gat_tiled.SOURCE),
+    ("tiled_gat_b1_kernel", gat_tiled.SOURCE)])
+def test_v1_kernels_share_the_group_walk(kernel, source):
+    """K3, K7 and K8 walk their rows through the one group walk of
+    ``tiled_rows.cuh``; K9 keeps the first walk, ``gather_rows``."""
+    header = _read(os.path.join(CSRC, "tiled_rows.cuh"))
+    assert header.count("void walk_groups(") == 1
+    assert "walk_groups<" in _body(_read(source), kernel)
+    assert "gather_rows<" in _body(_read(gat_tiled.SOURCE),
+                                   "tiled_gat_b2_kernel")
+
+
+def test_b1_keeps_g_r_in_registers():
+    """K8 loads the row's G_r once per column chunk, before its walk over
+    the row's slots, and the walk reads only z rows: no load of g per
+    slot."""
+    body = _body(_read(gat_tiled.SOURCE), "tiled_gat_b1_kernel")
+    walk = _call(body, "walk_groups<G, ROWS>")
+    assert body.index("cols.load(g + (int64_t)row * d + cols.base, gr)") < \
+        body.index("walk_groups<")
+    assert re.search(r"\bg\s*[+\[]", walk) is None
+    assert "cols.dot(zs + (int64_t)sk * d, gr)" in walk
+    assert "warp_sum(" not in body

@@ -48,6 +48,13 @@ def _edges(case, rng):
         n = 300
         s, r = rng.integers(0, n, 400), rng.integers(0, n, 400)
         return np.repeat(s, 5), np.repeat(r, 5), n
+    if case == "hub":
+        # row 7 with 3,500 in-edges: batches of slots and the online
+        # softmax's rescale wrap many times
+        n = 1500
+        s = rng.integers(0, n, 8500)
+        r = np.concatenate([rng.integers(0, n, 5000), np.full(3500, 7)])
+        return s, r, n
     raise ValueError(case)
 
 
@@ -713,42 +720,62 @@ def test_tiled_aggregate_grad_and_missing_transpose(cuda):
         aggregate(g, x0.to(cuda).double())
 
 
-@pytest.mark.parametrize("case", V1_CASES)
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 41),
-                                     (torch.float32, 512),
-                                     (torch.bfloat16, 512)])
-def test_gat_tiled_kernels_match_plain(cuda, case, dtype, d):
-    """K7, then K8 and K9 on the forward's m and l, each against its
-    plain walk on the same inputs: 1e-5 relative to the plain result's
-    max in fp32 (every kernel sums each row in order, no atomics), 1e-2
-    in bf16; empty rows give out 0, m -1e30, l 0."""
-    from gist_tpu_torch.ops import gat_tiled as GT
-    rng = np.random.default_rng(0)
+# K7's and K8's widths: one column, narrow odd rows (37, 41, 47), a row
+# of two lane groups (130), one and several block columns or chunks
+# (256, 257, 512, 602, 1024), and bf16
+GAT_TILED_WIDTHS = [(torch.float32, d) for d in (1, 37, 41, 47, 130, 256,
+                                                 257, 512, 602, 1024)] + \
+    [(torch.bfloat16, 64), (torch.bfloat16, 512)]
+GAT_TILED_CASES = V1_CASES + ["hub"]
+
+
+def _gat_tiled_inputs(case, d, dtype, cuda, seed=0):
+    rng = np.random.default_rng(seed)
     g, n = _v1_graph(case, rng)
-    gc = g.to(cuda)
 
     def t(*shape):
         return torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32)).to(cuda)
-    z, src, dst, gg = t(n, d).to(dtype), t(n), t(n), t(n, d)
+    return g, g.to(cuda), t(n, d).to(dtype), t(n), t(n), t(n, d)
+
+
+@pytest.mark.parametrize("case", GAT_TILED_CASES)
+@pytest.mark.parametrize("dtype,d", GAT_TILED_WIDTHS)
+def test_gat_tiled_kernels_match_plain(cuda, case, dtype, d):
+    """K7, then K8 and K9 on the forward's m and l, each with its chosen
+    plan against its plain walk on the same inputs: 1e-5 relative to the
+    plain result's max in fp32 (every kernel sums each row in a fixed
+    order, no atomics), 1e-2 in bf16; m is the exact max; empty rows give
+    out 0, m -1e30, l 0; outputs land in NaN-filled memory, so an
+    unwritten element shows; two launches give the same bits."""
+    from gist_tpu_torch.ops import gat_tiled as GT
+    g, gc, z, src, dst, gg = _gat_tiled_inputs(case, d, dtype, cuda)
+    rows = gc.tiled.num_tiles * gc.tiled.tile_rows
     before = (GT.launches_fwd, GT.launches_b1, GT.launches_b2)
+    _nan_blocks(cuda, ((rows, d), dtype), ((rows,), torch.float32))
     out, m, l = GT.gat_tiled_fwd(gc.tiled, z, src, dst, 0.2)
     torch.cuda.synchronize()
     want = GT.gat_tiled_fwd_reference(gc.tiled, z, src, dst, 0.2)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     assert out.dtype == dtype and torch.isfinite(out.float()).all()
     assert _rel(out, want[0]) <= tol
-    assert torch.equal(m, want[1]) or _rel(m, want[1]) <= 1e-6
+    assert torch.equal(m, want[1])
     assert _rel(l, want[2]) <= 1e-5
+    again = GT.gat_tiled_fwd(gc.tiled, z, src, dst, 0.2)
+    assert all(torch.equal(a, b) for a, b in zip((out, m, l), again))
     empty = torch.from_numpy(np.bincount(
         g.receivers[:g.n_edges].numpy(), minlength=l.shape[0]) == 0).to(cuda)
     assert torch.all(l[empty] == 0) and torch.all(m[empty] == -1e30)
     assert torch.all(out[empty] == 0)
+    _nan_blocks(cuda, ((rows,), torch.float32))
     ds, ddst = GT.gat_tiled_bwd_b1(gc.tiled, z, src, dst, m, l, gg, 0.2)
     torch.cuda.synchronize()
     ds_w, ddst_w = GT.gat_tiled_bwd_b1_reference(gc.tiled, z, src, dst, m, l,
                                                  gg, 0.2)
+    assert torch.isfinite(ds).all() and torch.isfinite(ddst).all()
     assert _rel(ds, ds_w) <= tol and _rel(ddst, ddst_w) <= tol
+    again = GT.gat_tiled_bwd_b1(gc.tiled, z, src, dst, m, l, gg, 0.2)
+    assert torch.equal(ds, again[0]) and torch.equal(ddst, again[1])
     dz, dsrc = GT.gat_tiled_bwd_b2(gc.tiled_t, ds, gg, src, dst, m, l, 0.2,
                                    dtype)
     torch.cuda.synchronize()
@@ -756,8 +783,47 @@ def test_gat_tiled_kernels_match_plain(cuda, case, dtype, d):
                                                  dst, m, l, 0.2, dtype)
     assert dz.dtype == dtype
     assert _rel(dz, dz_w) <= tol and _rel(dsrc, dsrc_w) <= tol
-    assert (GT.launches_fwd, GT.launches_b1, GT.launches_b2) == tuple(
-        x + 1 for x in before)
+    assert (GT.launches_fwd, GT.launches_b1, GT.launches_b2) == (
+        before[0] + 2, before[1] + 2, before[2] + 1)
+
+
+@pytest.mark.parametrize("case", GAT_TILED_CASES)
+@pytest.mark.parametrize("d,vec", [(41, 1), (47, 1), (130, 2), (512, 4)])
+def test_gat_tiled_plans_match_plain(cuda, case, d, vec):
+    """Every plan of K7's and K8's plan spaces (both modes, groups of 8
+    and 16 lanes, each per-lane count up to the fewest that cover D)
+    against the plain walks in fp32 at 1e-5 (m exact), each bitwise equal
+    over two launches; a plan without an instance raises."""
+    from gist_tpu_torch.ops import gat_tiled as GT
+    _, gc, z, src, dst, gg = _gat_tiled_inputs(case, d, torch.float32, cuda)
+    t = gc.tiled
+    out_w, m_w, l_w = GT.gat_tiled_fwd_reference(t, z, src, dst, 0.2)
+    ds_w, ddst_w = GT.gat_tiled_bwd_b1_reference(t, z, src, dst, m_w, l_w,
+                                                 gg, 0.2)
+    with pytest.raises(RuntimeError):
+        GT.run_fwd_plan(t, z, src, dst, 0.2, GT.Plan(False, 32, 1, vec))
+    with pytest.raises(RuntimeError):
+        GT.run_b1_plan(t, z, src, dst, m_w, l_w, gg, 0.2,
+                       GT.Plan(False, 16, 5, vec))
+
+    def check_fwd(run):
+        got = run()
+        torch.cuda.synchronize()
+        assert _rel(got[0], out_w) <= 1e-5 and _rel(got[2], l_w) <= 1e-5
+        assert torch.equal(got[1], m_w)
+        assert all(torch.equal(a, b) for a, b in zip(got, run()))
+    fwd = GT.plan_space(d, vec, GT.FWD_MAX)
+    assert GT.fwd_plan(d, vec) in fwd
+    for plan in fwd:
+        check_fwd(lambda: GT.run_fwd_plan(t, z, src, dst, 0.2, plan))
+    b1 = GT.plan_space(d, vec, GT.B1_MAX)
+    assert GT.b1_plan(d, vec) in b1
+    for plan in b1:
+        ds, ddst = GT.run_b1_plan(t, z, src, dst, m_w, l_w, gg, 0.2, plan)
+        torch.cuda.synchronize()
+        assert _rel(ds, ds_w) <= 1e-5 and _rel(ddst, ddst_w) <= 1e-5
+        again = GT.run_b1_plan(t, z, src, dst, m_w, l_w, gg, 0.2, plan)
+        assert torch.equal(ds, again[0]) and torch.equal(ddst, again[1])
 
 
 def test_gat_tiled_attention_grad_on_card(cuda):

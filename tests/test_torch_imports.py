@@ -1,4 +1,4 @@
-"""The port and its chip smoke script import neither JAX nor the JAX
+"""The port and its chip scripts import neither JAX nor the JAX
 package: the machine with the card has no JAX."""
 
 import ast
@@ -9,7 +9,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gist_tpu")
 SOURCES = sorted((ROOT / "gist_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
 
 
 def _imported_roots(path):
