@@ -50,10 +50,13 @@ raising on failure:
     and at the full synth-reddit-small graph's (the v1 main path's),
     with times beside the bound, ``torch.sparse.mm`` (K3) and the
     segment composite (K7-K9), and the rate of the rows each walk
-    gathers; K3, K7 and K8 also with their profiler time and two
-    launches held bitwise equal; K3's launch plans side by side at F=41,
-    47 and 256 on the full graph, and K7's and K8's at D=41 and 512
-    (phase ``v1_gat_plans``: every plan, in rounds);
+    gathers; K9 also beside one ``torch.sparse.mm`` of the transpose
+    pattern with alpha in its values (its dz part alone); K3 and K7-K9
+    also with their profiler time and two launches held bitwise equal;
+    K3's launch plans side by side at F=41, 47 and 256 on the full
+    graph, and K7's, K8's and K9's at D=41 and 512 (phase
+    ``v1_gat_plans``: every plan, in rounds; K9's best plan with at most
+    8 and with at most 16 accumulators a lane);
 15. v1 reference: one GAT h512 (2 heads, 2 layers) and one GCN h256
     training run of two Adam steps on the full synth-reddit-small v1
     graph through K7-K9 or K3 and through the segment path must agree;
@@ -1278,6 +1281,28 @@ def _library_spmm(torch, g, dtype, device, transpose, x):
     return lambda: torch.sparse.mm(adj, x)
 
 
+def _alpha_spmm(torch, GT, g, device, src, dst, m, l, slope, gg, tol,
+                want):
+    """K9's dz part as one library call: ``torch.sparse.mm`` of the
+    transpose pattern (rows the original senders, columns the original
+    receivers, node order) with each edge's alpha in its values, times
+    G.  The matrix is built once and not timed; raise unless its product
+    is within ``tol`` of ``want`` (K9's dz) relative to its max."""
+    e, n = g.n_edges, g.n_nodes
+    s = g.senders[:e].long().to(device)
+    r = g.receivers[:e].long().to(device)
+    alpha = GT._alpha(src[s] + dst[r], m[r], l[r], slope)[0]
+    adj = torch.sparse_coo_tensor(torch.stack([s, r]), alpha,
+                                  (n, n)).coalesce().to_sparse_csr()
+    got = torch.sparse.mm(adj, gg)
+    err = float((got - want[:n].float()).abs().max()
+                / want[:n].float().abs().max().clamp(min=1e-30))
+    if not err <= tol:
+        raise RuntimeError(f"the dz part by torch.sparse.mm is {err} off "
+                           f"K9's dz")
+    return lambda: torch.sparse.mm(adj, gg)
+
+
 def _v1_kernel_rows(torch, device, g, phase, k3_cases, gat_cases,
                     plain_reps):
     """K3 (forward on ``tiled``, transpose on ``tiled_t``) and K7, K8, K9
@@ -1367,15 +1392,20 @@ def _v1_kernel_rows(torch, device, g, phase, k3_cases, gat_cases,
             + rows_f * 12 + slots_f * 4, 2 * e * d, dtype,
             {"segment_ms": seg_bwd}, plain_reps, e * d * item,
             kernel_name="tiled_gat_b1_kernel")
+        got = GT.gat_tiled_bwd_b2(*b2)
+        dz_library = _alpha_spmm(
+            torch, GT, g, device, src, dst, m, l, slope, gg, tol, got[0])
         rows[("K9", tag)] = _v1_row(
-            torch, phase, "K9", tag, GT.gat_tiled_bwd_b2(*b2),
+            torch, phase, "K9", tag, got,
             GT.gat_tiled_bwd_b2_reference(*b2), tol,
             lambda: GT.gat_tiled_bwd_b2(*b2),
             lambda: GT.gat_tiled_bwd_b2_reference(*b2),
             _v1_layout_bytes(tt) + int(tt.tile_offsets[-1]) * 4
             + slots_f * 4 + n * d * 4 + 2 * n * 4 + rows_f * 8
             + rows_t * (d * item + 4), 2 * e * d, dtype,
-            {"segment_ms": seg_bwd}, plain_reps, e * d * 4)
+            {"segment_ms": seg_bwd, "dz_library_ms": dz_library},
+            plain_reps, e * d * 4, kernel_name="tiled_gat_b2_kernel")
+        del got, dz_library
         del z, gg, leaves, seg_out
     torch.cuda.empty_cache()
     return rows
@@ -1452,19 +1482,22 @@ def phase_k3_plans(torch, device, g):
 
 
 def phase_v1_gat_plans(torch, device, g):
-    """K7's and K8's launch plans side by side on the full
+    """K7's, K8's and K9's launch plans side by side on the full
     synth-reddit-small v1 graph, fp32, at D=41 (odd rows, scalar loads)
     and D=512 (float4 loads): every plan of each plan space
     (``gat_tiled.plan_space``), each held against the chosen plan's
     output (1e-5 relative to its max, m exactly; the chosen plan is held
     against the plain walk in the v1 phases) and timed like the kernels,
     every plan once a round over three rounds (``ms``: the median).
-    Returns the rows."""
+    Then, for K9, the best plan whose lanes hold at most 8 accumulators
+    (K7's cap: four block columns of 128 at D=512) beside the best with
+    at most ``B2_MAX``.  Returns the rows."""
     import numpy as np
 
     from gist_tpu_torch.ops import gat_tiled as GT
 
-    t = g.to(device).tiled
+    gd = g.to(device)
+    t, tt = gd.tiled, gd.tiled_t
     n = g.n_nodes
     rng = np.random.default_rng(0)
 
@@ -1478,6 +1511,7 @@ def phase_v1_gat_plans(torch, device, g):
         fwd = GT.gat_tiled_fwd(t, z, src, dst, 0.01)
         m, l = fwd[1], fwd[2]
         b1 = GT.gat_tiled_bwd_b1(t, z, src, dst, m, l, gg, 0.01)
+        b2 = GT.gat_tiled_bwd_b2(tt, b1[0], gg, src, dst, m, l, 0.01)
         vec = GT.vec_width(d, 4, z.data_ptr(), fwd[0].data_ptr())
         runs = []
         for plan in GT.plan_space(d, vec, GT.FWD_MAX):
@@ -1490,6 +1524,11 @@ def phase_v1_gat_plans(torch, device, g):
                                 "chosen": plan == GT.b1_plan(d, vec)},
                          lambda p=plan: GT.run_b1_plan(
                              t, z, src, dst, m, l, gg, 0.01, p), b1))
+        for plan in GT.plan_space(d, vec, GT.B2_MAX):
+            runs.append(("K9", {"plan": plan._asdict(),
+                                "chosen": plan == GT.b2_plan(d, vec)},
+                         lambda p=plan: GT.run_b2_plan(
+                             tt, b1[0], gg, src, dst, m, l, 0.01, p), b2))
         errs = []
         for kernel, variant, fn, want in runs:
             got = fn()
@@ -1504,6 +1543,7 @@ def phase_v1_gat_plans(torch, device, g):
         # every plan once a round, in turns, so drift falls on all alike
         times = [[_kernel_ms(torch, fn) for _, _, fn, _ in runs]
                  for _ in range(3)]
+        caps = {}
         for i, (kernel, variant, _, _) in enumerate(runs):
             row = {"phase": "v1_gat_plans", "kernel": kernel,
                    "case": f"D={d} float32", **variant,
@@ -1512,7 +1552,17 @@ def phase_v1_gat_plans(torch, device, g):
                    "rel_err_vs_chosen": errs[i]}
             emit(row)
             rows.append(row)
-        del z, gg
+            plan = variant["plan"]
+            values = plan["per_lane"] * plan["vec"]
+            if kernel == "K9":
+                for cap in (8, GT.B2_MAX):
+                    if values <= cap and (cap not in caps or row["ms"]
+                                          < caps[cap]["ms"]):
+                        caps[cap] = {"ms": row["ms"], "plan": plan}
+        emit({"phase": "v1_gat_plans", "kernel": "K9",
+              "case": f"D={d} float32", "best_by_cap": {
+                  str(cap): best for cap, best in sorted(caps.items())}})
+        del z, gg, fwd, b1, b2
     return rows
 
 
@@ -1890,6 +1940,7 @@ def main():
          "D=512 float32", "full_graph_gat"))
     for key, name, source, replaces, case, path in v1_kernels:
         main_row = v1_rows[(key, case)]
+        narrow = v1_rows.get((key, "D=41 float32"))   # K7-K9
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"gist_tpu_torch/csrc/{source}",
@@ -1905,8 +1956,8 @@ def main():
             "bound_by": main_row["bound_by"],
             "library_ms": main_row.get("library_ms"),
             **{k: main_row[k] for k in ("segment_ms", "library_call_ms",
-                                        "profiler_ms", "bitwise_repeat",
-                                        "gathered_tb_s")
+                                        "dz_library_ms", "profiler_ms",
+                                        "bitwise_repeat", "gathered_tb_s")
                if k in main_row},
             **({"narrow_f": {
                 d: {k: v1_rows[("K3", f"{d} F=41 float32")][k] for k in (
@@ -1914,11 +1965,12 @@ def main():
                     "bound_ms", "bound_by", "max_abs_err", "rel_err",
                     "profiler_ms", "bitwise_repeat", "gathered_tb_s")}
                 for d in ("fwd", "bwd")}} if key == "K3" else {}),
-            **({"narrow_d": {k: v1_rows[(key, "D=41 float32")][k] for k in (
-                "ms", "call_ms", "plain_ms", "segment_ms", "bound_ms",
-                "bound_by", "max_abs_err", "rel_err", "profiler_ms",
-                "bitwise_repeat", "gathered_tb_s")}}
-               if key in ("K7", "K8") else {})})
+            **({"narrow_d": {k: narrow[k] for k in (
+                "ms", "call_ms", "plain_ms", "segment_ms", "dz_library_ms",
+                "bound_ms", "bound_by", "max_abs_err", "rel_err",
+                "profiler_ms", "bitwise_repeat", "gathered_tb_s")
+                if k in narrow}}
+               if narrow else {})})
     emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.time() - t_all})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

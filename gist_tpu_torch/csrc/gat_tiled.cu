@@ -21,15 +21,15 @@
 //       original receivers r_e): dz_s = sum_e alpha_e G[r_e] with alpha
 //       recomputed from m, l of r_e, dsrc_s = sum_e ds[pos_in_other[e]].
 //
-// Design.  K7 and K8 walk their rows with tiled_rows.cuh's walk_groups,
-// as K3 does: the lanes of a warp in groups of G (8 or 16), a lane
-// holding C vectors of V elements of a row, and either one warp per row
-// with its groups on successive slots (edges mode, the groups' sums added
-// by a fixed xor tree at the end) or one row per group (rows mode).  The
-// plan (mode, G, C, V) is chosen on the host from D and the alignment
-// (gist_tpu_torch/ops/gat_tiled.py:fwd_plan, b1_plan), each plan its own
-// template instance; both were picked by timing every plan on an H100
-// (PERF.md).
+// Design.  K7, K8 and K9 walk their rows with tiled_rows.cuh's
+// walk_groups, as K3 does: the lanes of a warp in groups of G (8 or 16),
+// a lane holding C vectors of V elements of a row, and either one warp
+// per row with its groups on successive slots (edges mode, the groups'
+// sums added by a fixed xor tree at the end) or one row per group (rows
+// mode).  The plan (mode, G, C, V) is chosen on the host from D and the
+// alignment (gist_tpu_torch/ops/gat_tiled.py:fwd_plan, b1_plan,
+// b2_plan), each plan its own template instance; each was picked by
+// timing every plan on an H100 (PERF.md).
 //   * K7 is one pass over each row.  Each batch of slots (32 in edges
 //     mode, G in rows mode) forms its scores lrelu(src[s] + dst[r]); the
 //     batch max moves the running max m, and the accumulators and the
@@ -52,9 +52,16 @@
 //     out_r . G_r, which the TPU glue passes in; summed here from the
 //     same alpha and dalpha it cancels against in ddst_r, so the caller
 //     forms no c and keeps no forward output.
-//   * K9 keeps the first walk of the port (gather_rows): one warp per row
-//     over FC columns, K7's weighted gather over G with ds gathered
-//     through pos_in_other.
+//   * K9 is K7's weighted gather over G with final weights: the lane that
+//     holds a slot forms its alpha_e from m, l and dst of the slot's
+//     sender r_e (no running max, no rescale), and on block column 0 adds
+//     ds[pos_in_other[e]] into its share of dsrc in the same pass; one
+//     segment sum at the row's end gives dsrc_s.  A row per group won at
+//     both widths measured: at D = 41 groups of 16 lanes, half the batch
+//     steps a row of groups of 8, each step a chain of dependent loads
+//     (the sender, then its m, l and dst, and ds through pos_in_other)
+//     and an expf; at D = 512 groups of 8 with up to B2_MAX accumulators
+//     a lane (four block columns of 128, each forming alpha anew).
 // No kernel adds with atomics: every output element is stored once by
 // the lane or warp that summed it, so two launches give the same bits.
 // The TPU kernels' materialised per-slot message gathers, one-hot
@@ -86,26 +93,16 @@ namespace {
 
 using namespace tiled_rows;
 
-// fp32 values a lane may hold: K7's accumulators, K8's columns of G_r
+// fp32 values a lane may hold: K7's and K9's accumulators, K8's columns
+// of G_r
 constexpr int FWD_MAX = 8;
 constexpr int B1_MAX = 16;
+constexpr int B2_MAX = 16;
 
 template <int N>
 using Int = std::integral_constant<int, N>;
 template <bool B>
 using Bool = std::integral_constant<bool, B>;
-
-// K9's weight of a transpose slot whose sender is the original receiver r.
-struct Alpha {
-  const float *dst, *m, *l;
-  float sr, slope;
-  __device__ __forceinline__ float operator()(int r) const {
-    const float lr = __ldg(l + r);
-    if (!(lr > 0.f)) return 0.f;
-    const float e = lrelu(sr + __ldg(dst + r), slope);
-    return expf(fminf(e - __ldg(m + r), 0.f)) / fmaxf(lr, 1e-20f);
-  }
-};
 
 // ---------------------------------------------------------------------------
 // K7: forward.  grid (row blocks, ceil(d / (G * C * V))).
@@ -173,7 +170,7 @@ tiled_gat_fwd_kernel(const int32_t* __restrict__ tile_offsets,
   }
 }
 
-// K8's alpha_e of a slot with raw score `raw`.
+// K8's and K9's alpha_e of a slot with raw score `raw`.
 __device__ __forceinline__ float slot_alpha(float raw, float mr, float lr,
                                             float slope) {
   return lr > 0.f
@@ -264,39 +261,60 @@ tiled_gat_b1_kernel(const int32_t* __restrict__ tile_offsets,
 }
 
 // ---------------------------------------------------------------------------
-// K9: backward on the transpose layout.  grid (ceil(n_rows / WARPS),
-// ceil(d / FC)).  pos_in_other (E_t) int32; ds (E_t of the forward layout)
-// f32; g (N, d) f32; src, dst (N) f32; m, l (forward rows) f32; dz
-// (n_rows, d) in T; dsrc (n_rows) f32, written by block column 0.
+// K9: backward on the transpose layout.  grid (row blocks, ceil(d / (G * C
+// * V))).  pos_in_other (E_t) int32; ds (E_t of the forward layout) f32;
+// g (N, d) f32; src, dst (N) f32; m, l (forward rows) f32; dz (n_rows, d)
+// in T; dsrc (n_rows) f32, written by block column 0.
 // ---------------------------------------------------------------------------
-template <typename T, int V>
+template <typename T, int V, int G, int C, bool ROWS>
 __global__ void __launch_bounds__(THREADS)
 tiled_gat_b2_kernel(const int32_t* __restrict__ tile_offsets,
-                  const int32_t* __restrict__ senders,
-                  const int32_t* __restrict__ receivers,
-                  const int32_t* __restrict__ pos_in_other,
-                  const float* __restrict__ ds, const float* __restrict__ g,
-                  const float* __restrict__ src,
-                  const float* __restrict__ dst, const float* __restrict__ m,
-                  const float* __restrict__ l, T* __restrict__ dz,
-                  float* __restrict__ dsrc, int n_rows, int tile_rows, int d,
-                  float slope) {
+                    const int32_t* __restrict__ senders,
+                    const int32_t* __restrict__ receivers,
+                    const int32_t* __restrict__ pos_in_other,
+                    const float* __restrict__ ds, const float* __restrict__ g,
+                    const float* __restrict__ src,
+                    const float* __restrict__ dst,
+                    const float* __restrict__ m, const float* __restrict__ l,
+                    T* __restrict__ dz, float* __restrict__ dsrc, int n_rows,
+                    int tile_rows, int d, float slope) {
+  constexpr int NG = 32 / G;
+  constexpr int W = ROWS ? G : 32;   // lanes that share a row's batch
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * WARPS + threadIdx.x / 32;
-  if (row >= n_rows) return;
-  const int f0 = blockIdx.y * FC;
-  const Slots sl = row_slots(tile_offsets, receivers, row, tile_rows);
+  const int grp = lane / G;
+  const int warp = blockIdx.x * WARPS + threadIdx.x / 32;
+  const GroupCols<V, G, C> cols(blockIdx.y * G * C * V, lane % G, d);
+  const float* gs = g + cols.base;
+  const bool first = blockIdx.y == 0;   // the column that sums dsrc
+  const int row = ROWS ? warp * NG + grp : warp;
+  if (!ROWS && row >= n_rows) return;  // the whole warp
+  const Slots sl = row < n_rows
+                       ? row_slots(tile_offsets, receivers, row, tile_rows)
+                       : Slots{0, 0};
   const float sr = sl.begin < sl.end ? __ldg(src + row) : 0.f;
-  float acc[ACC] = {};
-  gather_rows<float, V>(senders, g, d, f0, sl, lane,
-                        Alpha{dst, m, l, sr, slope}, acc);
-  store_row<T, V>(dz + (int64_t)row * d, d, f0, lane, acc);
-  if (blockIdx.y == 0) {
-    float p = 0.f;
-    for (int64_t e = sl.begin + lane; e < sl.end; e += 32)
-      p += __ldg(ds + __ldg(pos_in_other + e));
-    p = warp_sum(p);
-    if (lane == 0) dsrc[row] = p;
+  float acc[C * V];
+#pragma unroll
+  for (int i = 0; i < C * V; ++i) acc[i] = 0.f;
+  float p = 0.f;      // this lane's slot's alpha
+  float part = 0.f;   // this lane's slots' share of dsrc
+  walk_groups<G, ROWS>(
+      senders, sl, lane,
+      [&](bool live, int64_t e, int r) {
+        p = live ? slot_alpha(sr + __ldg(dst + r), __ldg(m + r),
+                              __ldg(l + r), slope)
+                 : 0.f;
+        if (first && live) part += __ldg(ds + __ldg(pos_in_other + e));
+      },
+      [&](int sk, int k, bool valid) {
+        const float pk = __shfl_sync(FULL, p, k, W);
+        if (valid) cols.fma(gs + (int64_t)sk * d, pk, acc);
+      },
+      Nothing{});
+  if constexpr (!ROWS) sum_groups<G, C * V>(acc);
+  const float sum = first ? seg_sum<W>(part) : 0.f;   // block-uniform
+  if (ROWS ? row < n_rows : grp == 0) {
+    cols.store(dz + (int64_t)row * d + cols.base, acc);
+    if (first && lane % G == 0) dsrc[row] = sum;
   }
 }
 
@@ -417,39 +435,38 @@ int launch_b2(const void* tile_offsets, const void* senders,
               const void* receivers, const void* pos_in_other,
               const void* ds, const void* g, const void* src, const void* dst,
               const void* m, const void* l, void* dz, void* dsrc, int n_rows,
-              int tile_rows, int d, float slope, void* stream) {
-  if (n_rows > 0 && d > 0) {
-    const dim3 grid((n_rows + WARPS - 1) / WARPS, (d + FC - 1) / FC);
-    auto go = [&](auto kernel) {
-      kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-          static_cast<const int32_t*>(tile_offsets),
-          static_cast<const int32_t*>(senders),
-          static_cast<const int32_t*>(receivers),
-          static_cast<const int32_t*>(pos_in_other),
-          static_cast<const float*>(ds), static_cast<const float*>(g),
-          static_cast<const float*>(src), static_cast<const float*>(dst),
-          static_cast<const float*>(m), static_cast<const float*>(l),
-          static_cast<T*>(dz), static_cast<float*>(dsrc), n_rows, tile_rows,
-          d, slope);
-    };
-    const int v = vec_width(d, g, sizeof(float), dz, sizeof(T));
-    if (v == 4)
-      go(tiled_gat_b2_kernel<T, 4>);
-    else if (v == 2)
-      go(tiled_gat_b2_kernel<T, 2>);
-    else
-      go(tiled_gat_b2_kernel<T, 1>);
-  }
-  return (int)cudaGetLastError();
+              int tile_rows, int d, float slope, Plan p, void* stream) {
+  if (n_rows <= 0 || d <= 0) return (int)cudaGetLastError();
+  return pick_plan<B2_MAX>(
+      p.rows, p.group, p.per_lane, p.vec,
+      [&](auto v, auto gg, auto c, auto r) {
+        constexpr int V = decltype(v)::value, G = decltype(gg)::value;
+        constexpr int C = decltype(c)::value;
+        constexpr bool ROWS = decltype(r)::value;
+        const dim3 grid(row_blocks(n_rows, ROWS, G),
+                        (d + G * C * V - 1) / (G * C * V));
+        tiled_gat_b2_kernel<T, V, G, C, ROWS>
+            <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+                static_cast<const int32_t*>(tile_offsets),
+                static_cast<const int32_t*>(senders),
+                static_cast<const int32_t*>(receivers),
+                static_cast<const int32_t*>(pos_in_other),
+                static_cast<const float*>(ds), static_cast<const float*>(g),
+                static_cast<const float*>(src),
+                static_cast<const float*>(dst), static_cast<const float*>(m),
+                static_cast<const float*>(l), static_cast<T*>(dz),
+                static_cast<float*>(dsrc), n_rows, tile_rows, d, slope);
+        return (int)cudaGetLastError();
+      });
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Outputs are allocated by the
-// caller; ds must be zeroed (K8 writes the real slots only).  K7 and K8
-// take their plan (rows_mode, group, per_lane, vec) from
-// gist_tpu_torch/ops/gat_tiled.py, with z, out (K7), g (K8) and d
-// aligned to vec elements.  Each function returns cudaGetLastError(), or
+// caller; ds must be zeroed (K8 writes the real slots only).  Each kernel
+// takes its plan (rows_mode, group, per_lane, vec) from
+// gist_tpu_torch/ops/gat_tiled.py, with z, out (K7), g (K8, K9), dz (K9)
+// and d aligned to vec elements.  Each function returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a plan without an instance.
 #define GAT_TILED_API(SUFFIX, T)                                              \
   extern "C" int gat_tiled_fwd_##SUFFIX(                                      \
@@ -476,10 +493,10 @@ int launch_b2(const void* tile_offsets, const void* senders,
       const void* pos_in_other, const void* ds, const void* g,                \
       const void* src, const void* dst, const void* m, const void* l,         \
       void* dz, void* dsrc, int n_rows, int tile_rows, int d, float slope,    \
-      void* stream) {                                                         \
+      int rows_mode, int group, int per_lane, int vec, void* stream) {        \
     return launch_b2<T>(tile_offsets, senders, receivers, pos_in_other, ds,   \
                         g, src, dst, m, l, dz, dsrc, n_rows, tile_rows, d,    \
-                        slope, stream);                                       \
+                        slope, {rows_mode, group, per_lane, vec}, stream);    \
   }
 
 GAT_TILED_API(f32, float)

@@ -1,5 +1,5 @@
-// The row walks shared by the v1 gather-layout kernels for Hopper
-// (sm_90a): K3 (tiled_spmm.cu) and K7-K9 (gat_tiled.cu).
+// The row search and walk shared by the v1 gather-layout kernels for
+// Hopper (sm_90a): K3 (tiled_spmm.cu) and K7-K9 (gat_tiled.cu).
 //
 // Layout (TiledCSR): destination tile i owns the slots tile_offsets[i] ..
 // tile_offsets[i+1]-1, which hold its receiver-sorted edges (sender,
@@ -9,18 +9,16 @@
 // here by two binary searches over the tile's receivers.  Slots past
 // tile_offsets[-1] are never read.
 //
-// Two walks.  walk_groups (K3, K7, K8) cuts the lanes of a warp into
-// groups of G lanes, each lane holding C vectors of V elements of a row
-// (GroupCols), and either gives each group a row of its own (rows mode)
-// or puts the groups of one warp on successive slots of one row (edges
-// mode); the launch plan (mode, G, C, V) is chosen on the host.
-// gather_rows (K9) is the first walk of the port: one warp per row, the
-// lanes over FC columns of a block column with ACC accumulators each.
-// Feature rows are gathered by index inside the kernel with V-element
-// vector loads, so no per-slot message array exists in device memory.  A
-// row's slots are visited in a fixed order and summed in registers, and
-// each output row is stored once: no atomics, and the result does not
-// depend on the schedule.
+// One walk, walk_groups, for all four kernels: it cuts the lanes of a
+// warp into groups of G lanes, each lane holding C vectors of V elements
+// of a row (GroupCols), and either gives each group a row of its own
+// (rows mode) or puts the groups of one warp on successive slots of one
+// row (edges mode); the launch plan (mode, G, C, V) is chosen on the
+// host.  Feature rows are gathered by index inside the kernel with
+// V-element vector loads, so no per-slot message array exists in device
+// memory.  A row's slots are visited in a fixed order and summed in
+// registers, and each output row is stored once: no atomics, and the
+// result does not depend on the schedule.
 
 #pragma once
 
@@ -32,8 +30,6 @@ namespace tiled_rows {
 
 constexpr int WARPS = 8;              // destination rows per block
 constexpr int THREADS = 32 * WARPS;
-constexpr int ACC = 8;                // gather_rows: fp32 accumulators
-constexpr int FC = 32 * ACC;          // and columns of a block column
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG_INF = -1e30f;
 
@@ -74,12 +70,6 @@ __device__ __forceinline__ void store_vec(T* p, const float* v) {
 
 __device__ __forceinline__ float lrelu(float x, float slope) {
   return x > 0.f ? x : slope * x;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
 }
 
 struct Slots {
@@ -280,64 +270,5 @@ struct Nothing {
   template <typename... A>
   __device__ __forceinline__ void operator()(A...) const {}
 };
-
-// K9's walk: acc[q*V + k] += w_e * rows[s_e, f0 + (q*32 + lane)*V + k]
-// over the row's slots e in order, with s_e = senders[e] and w_e = weight(s_e).
-// Slots go in groups of 32: lane k loads slot k's sender and weight, then
-// the warp walks the group with both broadcast.
-template <typename T, int V, typename Weight>
-__device__ __forceinline__ void gather_rows(
-    const int32_t* __restrict__ senders, const T* __restrict__ rows,
-    int ncols, int f0, Slots sl, int lane, const Weight& weight,
-    float* acc) {
-  for (int64_t e0 = sl.begin; e0 < sl.end; e0 += 32) {
-    const int cnt = sl.end - e0 < 32 ? (int)(sl.end - e0) : 32;
-    int s = 0;
-    float w = 0.f;
-    if (lane < cnt) {
-      s = __ldg(senders + e0 + lane);
-      w = weight(s);
-    }
-#pragma unroll 4
-    for (int k = 0; k < cnt; ++k) {
-      const int64_t sk = __shfl_sync(FULL, s, k);
-      const float wk = __shfl_sync(FULL, w, k);
-      const T* src = rows + sk * ncols + f0;
-#pragma unroll
-      for (int q = 0; q < ACC / V; ++q) {
-        const int col = (q * 32 + lane) * V;
-        if (f0 + col < ncols) {
-          float v[V];
-          load_vec<T, V>(src + col, v);
-#pragma unroll
-          for (int kk = 0; kk < V; ++kk)
-            acc[q * V + kk] = fmaf(wk, v[kk], acc[q * V + kk]);
-        }
-      }
-    }
-  }
-}
-
-// out_row[f0 + ...] = acc, the lane's columns of gather_rows.
-template <typename T, int V>
-__device__ __forceinline__ void store_row(T* __restrict__ out_row, int ncols,
-                                          int f0, int lane, const float* acc) {
-#pragma unroll
-  for (int q = 0; q < ACC / V; ++q) {
-    const int col = (q * 32 + lane) * V;
-    if (f0 + col < ncols) store_vec<T, V>(out_row + f0 + col, acc + q * V);
-  }
-}
-
-// The widest V in {4, 2, 1} that divides ncols and to which each pointer
-// is aligned (items: that pointer's element size).
-inline int vec_width(int ncols, const void* a, int a_item, const void* b,
-                     int b_item) {
-  for (int v = 4; v > 1; v /= 2)
-    if (ncols % v == 0 && (uintptr_t)a % (v * a_item) == 0 &&
-        (uintptr_t)b % (v * b_item) == 0)
-      return v;
-  return 1;
-}
 
 }  // namespace tiled_rows

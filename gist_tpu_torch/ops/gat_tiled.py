@@ -15,10 +15,10 @@ and per-row arrays over the layout's ``num_tiles * tile_rows`` rows.
 Each launches its kernel for CUDA tensors (or raises) and runs its plain
 version (the TPU kernel's walk over tiles and chunk-slot blocks) for CPU
 tensors; ``launches_fwd``, ``launches_b1`` and ``launches_b2`` count the
-launches.  K7 and K8 launch with a plan chosen on the host from D and
-the alignment (:func:`fwd_plan`, :func:`b1_plan`), as K3 does;
-:func:`run_fwd_plan` and :func:`run_b1_plan` launch another plan for a
-measurement.
+launches.  Each launches with a plan chosen on the host from D and the
+alignment (:func:`fwd_plan`, :func:`b1_plan`, :func:`b2_plan`), as K3
+does; :func:`run_fwd_plan`, :func:`run_b1_plan` and :func:`run_b2_plan`
+launch another plan for a measurement.
 
 :func:`gat_attention_tiled` is differentiable.  Its backward runs K8 on
 the forward layout, then K9 on the transpose layout, when the backward
@@ -50,12 +50,13 @@ launches_b2 = 0
 _lib = None
 
 # the kernels' instances (csrc/gat_tiled.cu): lanes per group, vectors a
-# lane, and the fp32 values a lane may hold (K7's accumulators, K8's
-# columns of G_r)
+# lane, and the fp32 values a lane may hold (K7's and K9's accumulators,
+# K8's columns of G_r)
 GROUPS = (16, 8)
 PER_LANE = (1, 2, 3, 4, 6, 8)
 FWD_MAX = 8
 B1_MAX = 16
+B2_MAX = 16
 
 
 def reset_launches() -> None:
@@ -69,7 +70,7 @@ def _load():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         sigs = {"gat_tiled_fwd": [p] * 9 + [i, i, i, f] + [i] * 4 + [p],
                 "gat_tiled_bwd_b1": [p] * 11 + [i, i, i, f] + [i] * 4 + [p],
-                "gat_tiled_bwd_b2": [p] * 12 + [i, i, i, f, p]}
+                "gat_tiled_bwd_b2": [p] * 12 + [i, i, i, f] + [i] * 4 + [p]}
         _lib = dedup_spmm.load_library(SOURCE, {
             f"{name}_{suffix}": args for name, args in sigs.items()
             for suffix in ("f32", "bf16")})
@@ -77,7 +78,7 @@ def _load():
 
 
 # ---------------------------------------------------------------------------
-# Launch plans of K7 and K8
+# Launch plans of K7, K8 and K9
 # ---------------------------------------------------------------------------
 
 
@@ -136,6 +137,26 @@ def b1_plan(d: int, vec: int) -> Plan:
     nv = -(-d // vec)
     group = _group(nv, vec, B1_MAX)
     return Plan(True, group, _per_lane(nv, group, vec, B1_MAX), vec)
+
+
+def b2_plan(d: int, vec: int) -> Plan:
+    """The plan K9 launches at width ``d`` with ``vec``-element loads:
+    each group of lanes on a row of its own; groups of 16 lanes where 16
+    lanes hold the row in one block column within ``B2_MAX``
+    accumulators a lane, each lane holding the fewest vectors that cover
+    it, else groups of 8 lanes with as many vectors as a lane may hold
+    (a block column per ``span`` columns).  Chosen by measurement on an
+    H100 (``chip_smoke.py`` phase ``v1_gat_plans``; PERF.md): at D=41
+    16 lanes x 3 values were the fastest of the plan space by 11% (K7's
+    plan, one warp per row in groups of 8 x 6, came second); at D=512, 8
+    lanes x 4 float4 over four block columns of 128 led the next plan
+    (16 x 3 float4, three columns) by 1.2% and the best with at most 8
+    accumulators a lane by 2.3%."""
+    nv = -(-d // vec)
+    per16 = _per_lane(nv, 16, vec, B2_MAX)
+    if 16 * per16 >= nv:
+        return Plan(True, 16, per16, vec)
+    return Plan(True, 8, _per_lane(nv, 8, vec, B2_MAX), vec)
 
 
 # ---------------------------------------------------------------------------
@@ -270,11 +291,12 @@ def gat_tiled_fwd(t: TiledCSR, z, src, dst, negative_slope: float):
     return run_fwd_plan(t, z, src, dst, negative_slope, None)
 
 
-def _cuda(name, z):
+def _cuda(name, z, what="z"):
     if z.device.type != "cuda":
         raise ValueError(f"{name} launches on cuda tensors, not {z.device}")
     if z.dim() != 2:
-        raise ValueError(f"{name} expects z (N, D), got {tuple(z.shape)}")
+        raise ValueError(f"{name} expects {what} (N, D), got "
+                         f"{tuple(z.shape)}")
     return z.device
 
 
@@ -365,14 +387,20 @@ def gat_tiled_bwd_b2(t: TiledCSR, ds, g, src, dst, m, l,
     """K9: (dz (rows_t, D) in ``dtype``, dsrc (rows_t,) fp32) over the
     transpose layout ``t``; ds (E_t of the forward layout), g (N, D),
     src, dst (N,), m, l (forward rows,), all fp32."""
-    global launches_b2
     if _device(g, "gat_tiled_bwd_b2").type == "cpu":
         return gat_tiled_bwd_b2_reference(t, ds, g, src, dst, m, l,
                                           negative_slope, dtype)
-    dev = g.device
-    if g.dim() != 2:
-        raise ValueError(f"gat_tiled_bwd_b2 expects g (N, D), got "
-                         f"{tuple(g.shape)}")
+    return run_b2_plan(t, ds, g, src, dst, m, l, negative_slope, None,
+                       dtype)
+
+
+def run_b2_plan(t: TiledCSR, ds, g, src, dst, m, l, negative_slope: float,
+                plan, dtype=torch.float32):
+    """One K9 launch on CUDA tensors with ``plan`` (None:
+    :func:`b2_plan`'s).  The path calls it through
+    :func:`gat_tiled_bwd_b2`; a measurement may pass another plan."""
+    global launches_b2
+    dev = _cuda("gat_tiled_bwd_b2", g, "g")
     if dtype not in _FEAT:
         raise TypeError(f"gat_tiled_bwd_b2: dz must be one of {_FEAT}, not "
                         f"{dtype}")
@@ -389,15 +417,20 @@ def gat_tiled_bwd_b2(t: TiledCSR, ds, g, src, dst, m, l,
     rows = t.num_tiles * t.tile_rows
     dz = torch.empty((rows, d), dtype=dtype, device=dev)
     dsrc = torch.empty(rows, dtype=torch.float32, device=dev)
+    vec = min(vec_width(d, 4, g.data_ptr()),
+              vec_width(d, dz.element_size(), dz.data_ptr()))
+    plan = b2_plan(d, vec) if plan is None else \
+        _plan_vec("gat_tiled_bwd_b2", plan, vec)
     fn = getattr(_load(), f"gat_tiled_bwd_b2_{_suffix(dtype)}")
     err = fn(t.tile_offsets.data_ptr(), t.senders.data_ptr(),
              t.receivers.data_ptr(), t.pos_in_other.data_ptr(),
              ds.data_ptr(), g.data_ptr(), src.data_ptr(), dst.data_ptr(),
              m.data_ptr(), l.data_ptr(), dz.data_ptr(), dsrc.data_ptr(),
-             rows, t.tile_rows, d, float(negative_slope), _stream(dev))
+             rows, t.tile_rows, d, float(negative_slope), int(plan.rows),
+             plan.group, plan.per_lane, plan.vec, _stream(dev))
     if err:
-        raise RuntimeError(f"gat_tiled_bwd_b2 launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"gat_tiled_bwd_b2 launch failed with plan "
+                           f"{plan}: CUDA error {err}")
     launches_b2 += 1
     return dz, dsrc
 

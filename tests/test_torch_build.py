@@ -165,15 +165,46 @@ def test_gat_tiled_has_no_atomics(name):
 @pytest.mark.parametrize("kernel,source", [
     ("tiled_spmm_kernel", tiled_spmm.SOURCE),
     ("tiled_gat_fwd_kernel", gat_tiled.SOURCE),
-    ("tiled_gat_b1_kernel", gat_tiled.SOURCE)])
+    ("tiled_gat_b1_kernel", gat_tiled.SOURCE),
+    ("tiled_gat_b2_kernel", gat_tiled.SOURCE)])
 def test_v1_kernels_share_the_group_walk(kernel, source):
-    """K3, K7 and K8 walk their rows through the one group walk of
-    ``tiled_rows.cuh``; K9 keeps the first walk, ``gather_rows``."""
+    """K3, K7, K8 and K9 walk their rows through the one group walk of
+    ``tiled_rows.cuh``, which no longer defines the port's first walk
+    (``gather_rows`` and its ``store_row``)."""
     header = _read(os.path.join(CSRC, "tiled_rows.cuh"))
     assert header.count("void walk_groups(") == 1
     assert "walk_groups<" in _body(_read(source), kernel)
-    assert "gather_rows<" in _body(_read(gat_tiled.SOURCE),
-                                   "tiled_gat_b2_kernel")
+    for name in ("gather_rows", "store_row"):
+        assert re.search(rf"\b{name}\b", header) is None, name
+
+
+@pytest.mark.parametrize("name", ["gather_rows", "store_row", "ACC", "FC",
+                                  "vec_width", "Alpha", "warp_sum"])
+def test_v1_sources_drop_the_first_walk(name):
+    """What only K9's first walk used is gone from the v1 kernels'
+    sources: the walk and its store, its accumulator and column counts,
+    the host's vector width (K9 takes its plan from the host) and the
+    weight functor; ``gat_dedup.cu`` keeps its own ``warp_sum``."""
+    for path in (gat_tiled.SOURCE, tiled_spmm.SOURCE,
+                 os.path.join(CSRC, "tiled_rows.cuh")):
+        assert re.search(rf"\b{name}\b", _read(path)) is None, path
+
+
+def test_b2_sums_dsrc_in_the_walk():
+    """K9 gathers ds through ``pos_in_other`` inside its walk over the
+    row's slots, on block column 0, and sums dsrc with one segment sum
+    after it: no second loop over the row, no second read of its
+    receivers."""
+    body = _body(_read(gat_tiled.SOURCE), "tiled_gat_b2_kernel")
+    walk = _call(body, "walk_groups<G, ROWS>")
+    assert "__ldg(ds + __ldg(pos_in_other + e))" in walk
+    assert "if (first && live)" in walk
+    assert body.count("pos_in_other") == 1
+    assert body.count("receivers") == 1      # in row_slots
+    assert re.search(r"for \(int64_t", body) is None
+    assert body.count("seg_sum<W>(part)") == 1
+    assert body.index("walk_groups<") < body.index("seg_sum<W>(part)")
+    assert "cols.fma(gs + (int64_t)sk * d, pk, acc)" in walk
 
 
 def test_b1_keeps_g_r_in_registers():

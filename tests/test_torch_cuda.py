@@ -826,6 +826,48 @@ def test_gat_tiled_plans_match_plain(cuda, case, d, vec):
         assert torch.equal(ds, again[0]) and torch.equal(ddst, again[1])
 
 
+@pytest.mark.parametrize("case", GAT_TILED_CASES)
+@pytest.mark.parametrize("dtype,d,vec", [
+    (torch.float32, 41, 1), (torch.float32, 512, 4),
+    (torch.bfloat16, 41, 1), (torch.bfloat16, 512, 4)])
+def test_gat_tiled_b2_plans_match_plain(cuda, case, dtype, d, vec):
+    """Every plan of K9's plan space (both modes, groups of 8 and 16
+    lanes, each per-lane count up to the fewest that cover D, at most
+    B2_MAX accumulators) against the plain walk on the plain forward's m
+    and l and the plain B1's ds: 1e-5 relative to the plain result's max
+    with dz in fp32, 1e-2 in bf16; dz and dsrc land in NaN-filled memory;
+    two launches give the same bits; rows of the transpose layout without
+    slots give dz 0 and dsrc 0; a plan without an instance raises."""
+    from gist_tpu_torch.ops import gat_tiled as GT
+    g, gc, z, src, dst, gg = _gat_tiled_inputs(case, d, torch.float32, cuda)
+    tt = gc.tiled_t
+    _, m, l = GT.gat_tiled_fwd_reference(gc.tiled, z, src, dst, 0.2)
+    ds, _ = GT.gat_tiled_bwd_b1_reference(gc.tiled, z, src, dst, m, l, gg,
+                                          0.2)
+    args = (tt, ds, gg, src, dst, m, l, 0.2)
+    dz_w, dsrc_w = GT.gat_tiled_bwd_b2_reference(*args, dtype)
+    rows = tt.num_tiles * tt.tile_rows
+    empty = torch.from_numpy(np.bincount(
+        g.senders[:g.n_edges].numpy(), minlength=rows) == 0).to(cuda)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    with pytest.raises(RuntimeError):
+        GT.run_b2_plan(*args, GT.Plan(False, 32, 1, vec), dtype)
+    space = GT.plan_space(d, vec, GT.B2_MAX)
+    assert GT.b2_plan(d, vec) in space
+    for plan in space:
+        _nan_blocks(cuda, ((rows, d), dtype), ((rows,), torch.float32))
+        before = GT.launches_b2
+        dz, dsrc = GT.run_b2_plan(*args, plan, dtype)
+        torch.cuda.synchronize()
+        assert GT.launches_b2 == before + 1
+        assert dz.dtype == dtype and torch.isfinite(dz.float()).all()
+        assert torch.isfinite(dsrc).all()
+        assert _rel(dz, dz_w) <= tol and _rel(dsrc, dsrc_w) <= 1e-5, plan
+        assert torch.all(dz[empty] == 0) and torch.all(dsrc[empty] == 0)
+        again = GT.run_b2_plan(*args, plan, dtype)
+        assert torch.equal(dz, again[0]) and torch.equal(dsrc, again[1])
+
+
 def test_gat_tiled_attention_grad_on_card(cuda):
     """The autograd path on a v1 graph: one K7 launch forward, one K8 and
     one K9 backward, against the segment composite."""

@@ -1,6 +1,6 @@
-"""K7's and K8's launch plans, chosen on the host from D and the
-alignment (``gist_tpu_torch.ops.gat_tiled.fwd_plan`` and ``b1_plan``),
-and the plan launches' refusal of CPU tensors.  CPU only: the kernels
+"""K7's, K8's and K9's launch plans, chosen on the host from D and the
+alignment (``gist_tpu_torch.ops.gat_tiled.fwd_plan``, ``b1_plan`` and
+``b2_plan``), and the plan launches' refusal of CPU tensors.  CPU only: the kernels
 themselves are held against their plain walks on the card
 (``tests/test_torch_cuda.py``)."""
 
@@ -78,6 +78,62 @@ def test_b1_plan_covers_every_column_with_an_instance(d, vec):
                                     if c * vec <= GT.B1_MAX)
 
 
+@pytest.mark.parametrize("vec", [1, 2, 4])
+@pytest.mark.parametrize("d", WIDTHS)
+def test_b2_plan_covers_every_column_with_an_instance(d, vec):
+    """K9: a row per group; 16 lanes holding the row in one block column
+    with the fewest vectors a lane that cover it, where 16 lanes can
+    within B2_MAX accumulators, else 8 lanes with as many vectors as a
+    lane may hold, a block column per span."""
+    plan = GT.b2_plan(d, vec)
+    assert plan.vec == vec and plan.rows
+    cols = _covers(plan, d, GT.B2_MAX)
+    assert plan.grid(23040, d) == (-(-23040 // (8 * 32 // plan.group)),
+                                   cols)
+    most = max(c for c in GT.PER_LANE if c * vec <= GT.B2_MAX)
+    assert plan.group == (16 if 16 * most * vec >= d else 8)
+    if plan.group == 16:
+        assert cols == 1
+        assert all(c * 16 * vec < d for c in GT.PER_LANE
+                   if c < plan.per_lane)
+    else:
+        assert plan.per_lane == most
+
+
+@pytest.mark.parametrize("d,vec,want", [
+    # D=41 (the output layer): 16 lanes x 3 values, two rows a warp
+    (41, 1, (True, 16, 3, 1, 1)),
+    # D=512 fp32 and bf16 (float4 and 4 x bf16 loads): 8 lanes x 4
+    # vectors, four rows a warp, four block columns of 128
+    (512, 4, (True, 8, 4, 4, 4)),
+    (1024, 4, (True, 8, 4, 4, 8)),
+    (602, 2, (True, 8, 8, 2, 5)),
+    (256, 4, (True, 16, 4, 4, 1)),
+])
+def test_b2_plan_at_the_paths_widths(d, vec, want):
+    plan = GT.b2_plan(d, vec)
+    assert (plan.rows, plan.group, plan.per_lane, plan.vec,
+            -(-d // plan.span)) == want
+
+
+@pytest.mark.parametrize("d,vec", [(41, 1), (47, 1), (130, 2), (512, 4),
+                                   (1024, 4)])
+def test_b2_plan_space_holds_the_chosen_plan(d, vec):
+    """K9's plans a measurement compares, with the host's choice among
+    them; at D=512 they hold both caps the measurement weighed (8 and 16
+    accumulators a lane: four block columns of 128 or two of 256)."""
+    space = GT.plan_space(d, vec, GT.B2_MAX)
+    assert len(space) == len(set(space))
+    for plan in space:
+        _covers(plan, d, GT.B2_MAX)
+    assert {p.rows for p in space} == {False, True}
+    assert {p.group for p in space} == set(GT.GROUPS)
+    assert GT.b2_plan(d, vec) in space
+    if d == 512:
+        assert {-(-d // p.span) for p in space
+                if p.group == 16 and not p.rows} >= {2, 4}
+
+
 @pytest.mark.parametrize("d,vec,fwd,b1", [
     # D=41 (the output layer): 41 of 48 lane slots in groups of 8; K7 one
     # warp per row (four slots a warp step), K8 four rows a warp
@@ -115,7 +171,8 @@ def test_plan_space_holds_the_chosen_plan(d, vec, most):
 
 def test_plan_constants_match_the_kernel_source():
     text = _source()
-    for name, value in (("FWD_MAX", GT.FWD_MAX), ("B1_MAX", GT.B1_MAX)):
+    for name, value in (("FWD_MAX", GT.FWD_MAX), ("B1_MAX", GT.B1_MAX),
+                        ("B2_MAX", GT.B2_MAX)):
         found = re.search(rf"constexpr int {name} = (\d+);", text)
         assert found and int(found.group(1)) == value, name
     cases = re.findall(r"case (\d+): return with_c<MAX, (\d+)>", text)
@@ -139,15 +196,21 @@ def test_plan_launches_refuse_cpu_tensors():
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     z, src, dst, gg = randn(300, 41), randn(300), randn(300), randn(300, 41)
-    before = (GT.launches_fwd, GT.launches_b1)
+    before = (GT.launches_fwd, GT.launches_b1, GT.launches_b2)
     out, m, l = GT.gat_tiled_fwd(t, z, src, dst, 0.2)
     ds, ddst = GT.gat_tiled_bwd_b1(t, z, src, dst, m, l, gg, 0.2)
+    dz, dsrc = GT.gat_tiled_bwd_b2(g.tiled_t, ds, gg, src, dst, m, l, 0.2)
     assert out.shape == (t.num_tiles * t.tile_rows, 41)
     assert ds.shape == t.senders.shape and ddst.shape == m.shape
+    rows_t = g.tiled_t.num_tiles * g.tiled_t.tile_rows
+    assert dz.shape == (rows_t, 41) and dsrc.shape == (rows_t,)
     with pytest.raises(ValueError):
         GT.run_fwd_plan(t, z, src, dst, 0.2, GT.fwd_plan(41, 1))
     with pytest.raises(ValueError):
         GT.run_fwd_plan(t, z, src, dst, 0.2, None)
     with pytest.raises(ValueError):
         GT.run_b1_plan(t, z, src, dst, m, l, gg, 0.2, GT.b1_plan(41, 1))
-    assert (GT.launches_fwd, GT.launches_b1) == before
+    for plan in (GT.b2_plan(41, 1), None):
+        with pytest.raises(ValueError):
+            GT.run_b2_plan(g.tiled_t, ds, gg, src, dst, m, l, 0.2, plan)
+    assert (GT.launches_fwd, GT.launches_b1, GT.launches_b2) == before
