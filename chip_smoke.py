@@ -62,7 +62,20 @@ raising on failure:
     graph through K7-K9 or K3 and through the segment path must agree;
 16. v1 main path: ``train_full_graph`` on that graph for 6 epochs with
     GAT h512 (K7-K9) and with GCN h256 (K3), counting launches; each
-    again under ``torch.profiler`` for its device time per epoch.
+    again under ``torch.profiler`` for its device time per epoch;
+17. uw_resume (run after phase 6): the main path's configuration with
+    a checkpoint each round, 3 rounds uninterrupted, then 2 rounds into
+    a fresh directory resumed to 3; the resumed tail's losses and val F1
+    must equal the uninterrupted run's within 1e-5 relative, K1 9
+    launches a step in every run;
+18. uw_cli_chunked_eval (run last): ``python -m
+    gist_tpu_torch.cli.ist_distrib --ultra-wide`` as a function, SAGE
+    h2048, 4 hidden layers, K=8, 2 rounds on synth-reddit (psize 100,
+    batch 10: K1 on every batch, 9 launches a step) with checkpoints and
+    the chunked host eval; then ``cli.infer`` on the last round on the
+    card, and the chunked host forward of the same params held against
+    the card's logits at rtol = atol = 0.05, with both walls, the
+    host's ``nproc`` and torch threads.
 
 Kernel and library times: ``ms`` is device time per call, one CUDA
 event pair around back-to-back calls queued ahead of the card
@@ -528,6 +541,209 @@ def phase_cluster_gcn(torch, ds):
         raise RuntimeError(f"K1 launched {launches} times, want 25")
     if not all(v == v and abs(v) < float("inf") for v in r["losses"]):
         raise RuntimeError("non-finite loss")
+
+
+def _rel_diff(a, b):
+    """Largest |a - b| / max(|b|, tiny) over two equal-length lists."""
+    return max((abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b)),
+               default=0.0)
+
+
+def phase_uw_resume(torch, ds):
+    """Checkpoint and resume on the card: the SAGE main path's
+    configuration with an eval on the card every round and a checkpoint
+    each; 3 rounds uninterrupted, then 2 rounds into a fresh directory
+    and that directory resumed to 3.  The cut run and the resumed tail
+    must equal the uninterrupted run within 1e-5 relative (K1 sums in a
+    fixed order); every run launches K1 9 times a step."""
+    import dataclasses
+    import tempfile
+
+    from gist_tpu_torch.models.sage import SAGEConfig
+    from gist_tpu_torch.ops import dedup_spmm as K
+    from gist_tpu_torch.train.checkpoint import latest_round_dir
+    from gist_tpu_torch.train.common import TrainConfig
+    from gist_tpu_torch.train.ist_ultrawide import train_ist_ultrawide
+
+    cfg = SAGEConfig(100, 2048, 47, n_layers=4, dropout=0.2)
+    launches = 0
+
+    def run(n_epochs, ck):
+        nonlocal launches
+        tc = TrainConfig(lr=1e-2, weight_decay=0.0, n_epochs=n_epochs,
+                         num_subnet=8, iter_per_site=5)
+        K.launches = 0
+        t0 = time.time()
+        r = train_ist_ultrawide(dataclasses.replace(ds), cfg, tc, psize=50,
+                                batch_size=10, normalize=True, use_f1=True,
+                                eval_on_cpu=False, checkpoint_dir=ck,
+                                verbose=False, device="cuda")
+        torch.cuda.synchronize()
+        r["wall_s"] = time.time() - t0
+        steps = len(r["round_wall_s"]) * tc.num_subnet * tc.iter_per_site
+        if K.launches != 9 * steps:
+            raise RuntimeError(f"K1 launched {K.launches} times in "
+                               f"{steps} steps, want 9 per step")
+        launches += K.launches
+        r["k1_launches"] = K.launches
+        return r
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full = run(24, os.path.join(tmp, "full"))
+        ck = os.path.join(tmp, "cut")
+        cut = run(16, ck)
+        if os.path.basename(latest_round_dir(ck) or "") != "round_1":
+            raise RuntimeError("the cut run left no round_1 checkpoint")
+        resumed = run(24, ck)
+    loss_diff = _rel_diff(cut["losses"] + resumed["losses"], full["losses"])
+    f1_diff = _rel_diff(cut["val_accs"] + resumed["val_accs"],
+                        full["val_accs"])
+    row = {"phase": "uw_resume", "rounds": [len(full["losses"]),
+                                            len(cut["losses"]),
+                                            len(resumed["losses"])],
+           "losses": full["losses"],
+           "resumed_losses": resumed["losses"], "val_f1": full["val_accs"],
+           "resumed_val_f1": resumed["val_accs"],
+           "loss_rel_diff": loss_diff, "val_f1_rel_diff": f1_diff,
+           "tol": 1e-5, "k1_launches": launches,
+           "k1_launches_by_run": [full["k1_launches"], cut["k1_launches"],
+                                  resumed["k1_launches"]],
+           "wall_s": [full["wall_s"], cut["wall_s"], resumed["wall_s"]],
+           "round_wall_s": full["round_wall_s"],
+           "eval_wall_s": full["eval_wall_s"],
+           "resumed_round_wall_s": resumed["round_wall_s"]}
+    emit(row)
+    if [len(full["losses"]), len(cut["losses"]),
+            len(resumed["losses"])] != [3, 2, 1]:
+        raise RuntimeError(f"expected 3, 2 and 1 rounds: {row['rounds']}")
+    if not (loss_diff <= 1e-5 and f1_diff <= 1e-5):
+        raise RuntimeError("the resumed run left the uninterrupted one")
+    if not all(v == v and abs(v) < float("inf")
+               for v in full["losses"] + full["val_accs"]):
+        raise RuntimeError("non-finite loss or F1")
+    return launches
+
+
+def phase_uw_cli_chunked_eval(torch, device):
+    """The entry point and the serving path: ``cli.ist_distrib
+    --ultra-wide`` trains SAGE h2048 (4 hidden layers, K=8) for 2 rounds
+    on synth-reddit with checkpoints; N x h is over the trainer's
+    threshold, so each eval runs the chunked host forward (its output is
+    kept as it returns).  Then ``cli.infer`` evaluates the last round on
+    the card with the plain ``sage.apply``, and the trainer's last
+    chunked host forward, of the same params, is held against the card's
+    logits at rtol = atol = 0.05."""
+    import tempfile
+
+    import numpy as np
+
+    from gist_tpu_torch.cli import infer, ist_distrib
+    from gist_tpu_torch.convert import params_from_jax
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.graph import graph_from_edges
+    from gist_tpu_torch.models import sage
+    from gist_tpu_torch.ops import dedup_spmm as K
+    from gist_tpu_torch.sampler import TILES_MIN_EDGES
+    from gist_tpu_torch.train import ist_ultrawide as UW
+    from gist_tpu_torch.train.checkpoint import (latest_round_dir,
+                                                 load_checkpoint,
+                                                 params_to_host)
+
+    model = ["--dataset", "synth-reddit", "--n-hidden", "2048",
+             "--n-layers", "4", "--normalize", "--use-f1"]
+    chunked, real = [], sage.apply_chunked_host
+
+    def keep(*args, **kw):
+        chunked.append(real(*args, **kw))
+        return chunked[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        K.launches = 0
+        t0 = time.time()
+        sage.apply_chunked_host = keep
+        try:
+            r = ist_distrib.main(model + [
+                "--ultra-wide", "--num_subnet", "8", "--iter_per_site", "5",
+                "--psize", "100", "--batch-size", "10", "--n-epochs", "8",
+                "--lr", "1e-2", "--dropout", "0.2", "--weight-decay", "0",
+                "--checkpoint-dir", ck])
+        finally:
+            sage.apply_chunked_host = real
+        torch.cuda.synchronize()
+        train_wall = time.time() - t0
+        launches = K.launches
+        steps = len(r["round_wall_s"]) * 8 * 5
+        logits_path = os.path.join(tmp, "logits.npy")
+        t0 = time.time()
+        served = infer.main(model + ["--checkpoint-dir", ck,
+                                     "--logits-out", logits_path])
+        infer_wall = time.time() - t0
+        card = np.load(logits_path)
+        params = params_to_host(load_checkpoint(latest_round_dir(ck))
+                                ["params"])
+
+    if len(chunked) != 2:
+        raise RuntimeError(f"the trainer ran {len(chunked)} chunked evals, "
+                           f"want one a round")
+    host = chunked[-1]
+    ds = load_dataset("synth-reddit").normalize_features()
+    cfg = sage.SAGEConfig(ds.in_feats, 2048, ds.n_classes, n_layers=4)
+    graph = graph_from_edges(ds.senders, ds.receivers, ds.n_nodes).to(device)
+    x = torch.from_numpy(ds.features).to(device)
+    p_dev = params_from_jax(params, device)
+    device_eval_s = []                 # a first call, then a second
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            sage.apply(p_dev, graph, x, cfg)
+            torch.cuda.synchronize()
+            device_eval_s.append(time.time() - t0)
+    del graph, x, p_dev
+    err = np.abs(host - card)
+    excess = float((err / (0.05 + 0.05 * np.abs(card))).max())
+    nproc = subprocess.run(["nproc"], capture_output=True, text=True)
+    row = {"phase": "uw_cli_chunked_eval", "nodes": ds.n_nodes,
+           "edges": ds.n_edges,
+           "activation_elements": ds.n_nodes * 2048,
+           "chunked_threshold": UW.CHUNKED_EVAL_MIN_ELEMENTS,
+           "rounds": len(r["losses"]), "steps": steps,
+           "k1_launches": launches, "losses": r["losses"],
+           "val_f1": r["val_accs"], "served_val_f1": served["val"],
+           "round_wall_s": r["round_wall_s"],
+           "host_prep_s": r["host_prep_s"],
+           "device_sync_s": r["device_sync_s"],
+           "trainer_eval_wall_s": r["eval_wall_s"],
+           "rss_gb": r["rss_gb"], "loadavg_1m": r["loadavg_1m"],
+           "edges_per_batch": r["edges_per_batch"],
+           "cli_train_wall_s": train_wall, "cli_infer_wall_s": infer_wall,
+           "host_eval_s": r["eval_wall_s"][-1],
+           "device_eval_s": device_eval_s,
+           "max_abs_err": float(err.max()),
+           "tol_ratio": excess, "rtol": 0.05, "atol": 0.05,
+           "argmax_agree": float((host.argmax(-1) == card.argmax(-1))
+                                 .mean()),
+           "nproc": int(nproc.stdout.strip() or 0),
+           "torch_threads": torch.get_num_threads()}
+    emit(row)
+    if ds.n_nodes * 2048 <= UW.CHUNKED_EVAL_MIN_ELEMENTS:
+        raise RuntimeError("synth-reddit at h2048 did not reach the "
+                           "chunked eval")
+    if len(r["losses"]) != 2:
+        raise RuntimeError(f"expected 2 rounds with an eval each: {row}")
+    if launches != 9 * steps:
+        raise RuntimeError(f"K1 launched {launches} times, want 9 per step "
+                           f"({9 * steps})")
+    if not all(e >= TILES_MIN_EDGES for e in r["edges_per_batch"]):
+        raise RuntimeError("a batch fell under the layout's edge threshold")
+    if not (np.isfinite(host).all() and np.isfinite(card).all()
+            and host.shape == card.shape == (ds.n_nodes, ds.n_classes)):
+        raise RuntimeError("non-finite or misshapen logits")
+    if excess > 1.0:
+        raise RuntimeError(f"the chunked host eval left the card's logits: "
+                           f"{excess:.3f} x the tolerance")
+    return launches
 
 
 def _layout_bytes(layout):
@@ -1795,6 +2011,10 @@ def main():
     phase_cluster_gcn(torch, dataclasses.replace(ds))
     emit({"phase": "cluster_gcn", "seconds": time.time() - t0})
 
+    t0 = time.time()
+    resume_launches = phase_uw_resume(torch, ds)
+    emit({"phase": "uw_resume", "seconds": time.time() - t0})
+
     ds_r = load_dataset("synth-reddit-small")
     gat_sampler = ClusterSampler(dataclasses.replace(ds_r), 10, 4, seed=0,
                                  tiles=True)
@@ -1871,6 +2091,12 @@ def main():
     t0 = time.time()
     chunked_k4 = phase_gat_chunked(torch, device, ds_big, big_graph)
     emit({"phase": "gat_chunked", "seconds": time.time() - t0})
+    del ds_big, big_graph
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    cli_launches = phase_uw_cli_chunked_eval(torch, device)
+    emit({"phase": "uw_cli_chunked_eval", "seconds": time.time() - t0})
 
     main_case = cases["fwd F=256 float32"]
     full_case = chunked_rows["run_dedup_chunked fwd F=256 float32"]
@@ -1878,9 +2104,12 @@ def main():
         "name": "dedup_spmm", "route": "cuda",
         "source": "gist_tpu_torch/csrc/dedup_spmm.cu",
         "replaces": "gist_tpu/ops/pallas_spmm.py:66",
-        "launches": launches + full_launches,
+        "launches": launches + full_launches + resume_launches
+        + cli_launches,
         "launches_by_path": {"sage_ultrawide": launches,
-                             "full_graph_gcn": full_launches},
+                             "full_graph_gcn": full_launches,
+                             "uw_resume": resume_launches,
+                             "uw_cli_synth_reddit": cli_launches},
         "max_abs_err": max(c["max_abs_err"] for c in [
             *cases.values(), *chunked_rows.values()]
             if c["case"].endswith("float32")),

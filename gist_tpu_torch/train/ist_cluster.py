@@ -12,12 +12,21 @@ at the ``len(sampler)`` step cadence of the JAX trainer.
 The JAX trainer runs the K subnets side by side over a ``subnet`` mesh
 and gathers their shards with one ``all_gather``; the subnets' steps are
 independent, so the loop over subnets computes the same round.  The mesh
-(NCCL over several cards), ``lsgd``, ``use_pp`` and checkpoints wait for
-the distributed slice of the port.
+(NCCL over several cards) and ``lsgd`` wait for the distributed slice of
+the port, ``use_pp`` for the plain GraphSAGE stack.
+
+With ``checkpoint_dir`` every eval round saves the params, the round,
+the states of the partition and dropout generators and the eval
+cadence's counters (:mod:`gist_tpu_torch.train.checkpoint`); a rerun
+with the same arguments resumes after the newest round, replaying the
+batch stream the finished rounds consumed.  The JAX trainer restarts
+its eval cadence on resume; the port continues it, so a resumed run
+evaluates at the rounds the uninterrupted run did.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
@@ -34,6 +43,11 @@ from gist_tpu_torch.models import sage
 from gist_tpu_torch.models.common import masked_accuracy, micro_f1
 from gist_tpu_torch.sampler import (ClusterBatch, ClusterSampler,
                                     bucket_size, unify_tile_buckets)
+from gist_tpu_torch.train.checkpoint import (generator_state,
+                                             latest_round_dir,
+                                             load_checkpoint,
+                                             restore_generator,
+                                             save_checkpoint)
 from gist_tpu_torch.train.common import TrainConfig, reference_lr_schedule
 from gist_tpu_torch.utils import resolve_device
 
@@ -100,9 +114,6 @@ def train_ist_cluster(
         raise NotImplementedError(
             "the subnet mesh and the local-SGD baseline wait for the "
             "distributed slice of the port")
-    if checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoints wait for the distributed slice of the port")
     if use_pp:
         raise NotImplementedError(
             "the use_pp precomputation waits for the slice that ports the "
@@ -168,12 +179,40 @@ def train_ist_cluster(
     steps_per_eval = max(len(sampler), 1)
     steps_done = 0
     next_eval = steps_per_eval
+    start_round = 0
+
+    if checkpoint_dir:
+        ck = latest_round_dir(checkpoint_dir)
+        if ck is not None:
+            state = load_checkpoint(ck)
+            full_params = {"layers": [
+                {k: v.to(dev) for k, v in layer.items()}
+                for layer in state["params"]["layers"]]}
+            restore_generator(part_gen, state["part_gen"])
+            restore_generator(drop_gen, state["drop_gen"])
+            start_round = int(state["round"]) + 1
+            steps_done, next_eval = state["steps_done"], state["next_eval"]
+            if verbose:
+                print(f"resumed from {ck} (round {start_round})",
+                      flush=True)
+            # replay the sampler's stream so the cluster order continues
+            for _ in range(start_round):
+                collector.collect()
+
+    if start_round >= n_rounds:
+        # a finished run's checkpoint: evaluate it only
+        va, ta = evaluate(full_params)
+        val_accs.append(va)
+        test_accs.append(ta)
+        eval_times.append(0.0)
+        losses.append(float("nan"))
 
     # the next round's host-side batch build overlaps the card's work
     pool = ThreadPoolExecutor(max_workers=1)
     try:
-        pending = pool.submit(collector.collect)
-        for rnd in range(n_rounds):
+        pending = pool.submit(collector.collect) \
+            if start_round < n_rounds else None
+        for rnd in range(start_round, n_rounds):
             batches = pending.result()
             pending = pool.submit(collector.collect) \
                 if rnd + 1 < n_rounds else None
@@ -206,6 +245,14 @@ def train_ist_cluster(
                 if verbose:
                     print(f"round {rnd}/{n_rounds}: loss {losses[-1]:.4f} "
                           f"val {va:.4f}", flush=True)
+                if checkpoint_dir:
+                    save_checkpoint(
+                        os.path.join(checkpoint_dir, f"round_{rnd}"),
+                        {"params": full_params, "round": rnd,
+                         "part_gen": generator_state(part_gen),
+                         "drop_gen": generator_state(drop_gen),
+                         "steps_done": steps_done,
+                         "next_eval": next_eval})
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 

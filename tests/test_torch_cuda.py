@@ -900,3 +900,54 @@ def test_gat_tiled_attention_grad_on_card(cuda):
     with pytest.raises(TypeError):
         GT.gat_tiled_fwd(g.tiled, kl[0].detach().double(), kl[1].detach(),
                          kl[2].detach(), 0.01)
+
+
+def test_checkpoint_cuda_generator_round_trip(cuda, tmp_path):
+    """A CUDA generator's state survives a checkpoint bitwise, and it
+    restores only into a CUDA generator."""
+    from gist_tpu_torch.train import checkpoint as C
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    torch.rand(1000, generator=gen, device=cuda)
+    C.save_checkpoint(str(tmp_path / "round_0"),
+                      {"drop_gen": C.generator_state(gen)})
+    saved = C.load_checkpoint(str(tmp_path / "round_0"))["drop_gen"]
+    assert saved["device"] == "cuda"
+    fresh = torch.Generator(device=cuda).manual_seed(0)
+    C.restore_generator(fresh, saved)
+    assert torch.equal(torch.rand(4096, generator=fresh, device=cuda),
+                       torch.rand(4096, generator=gen, device=cuda))
+    with pytest.raises(ValueError, match="'cuda' generator"):
+        C.restore_generator(torch.Generator(), saved)
+    with pytest.raises(ValueError, match="'cpu' generator"):
+        C.restore_generator(torch.Generator(device=cuda),
+                            C.generator_state(torch.Generator()))
+
+
+def test_ultrawide_resume_on_card(cuda, tmp_path, monkeypatch):
+    """Cut after round 1 and resumed to round 3 on the card: the tail
+    equals the uninterrupted run's, dropout masks drawn on the card.
+    Every batch carries the dedup layout, so the steps run K1, which
+    sums in a fixed order (the segment path's atomics would move the
+    last bits between any two runs)."""
+    from gist_tpu_torch import sampler
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.models.sage import SAGEConfig
+    from gist_tpu_torch.train.common import TrainConfig
+    from gist_tpu_torch.train.ist_ultrawide import train_ist_ultrawide
+    monkeypatch.setattr(sampler, "TILES_MIN_EDGES", 0)
+
+    def run(n_epochs, ck=None):
+        ds = load_dataset("synth-tiny")
+        tc = TrainConfig(lr=3e-2, weight_decay=0.0, n_epochs=n_epochs,
+                         num_subnet=2, iter_per_site=2)
+        return train_ist_ultrawide(
+            ds, SAGEConfig(ds.in_feats, 16, ds.n_classes, dropout=0.3), tc,
+            psize=4, batch_size=2, eval_on_cpu=False, checkpoint_dir=ck,
+            verbose=False, device="cuda")
+    K.launches = 0
+    full = run(8)
+    assert K.launches > 0
+    cut = run(4, str(tmp_path))
+    resumed = run(8, str(tmp_path))
+    assert cut["losses"] + resumed["losses"] == full["losses"]
+    assert cut["val_accs"] + resumed["val_accs"] == full["val_accs"]

@@ -166,8 +166,8 @@ def test_unported_modes_raise():
     ds = load_dataset("synth-tiny")
     with pytest.raises(NotImplementedError, match="distributed"):
         t_uw(ds, tcfg, TTC(num_subnet=2), sequential=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed"):
-        t_uw(ds, tcfg, TTC(num_subnet=2), checkpoint_dir="ck", device="cpu")
+    with pytest.raises(NotImplementedError, match="use_pp"):
+        t_uw(ds, tcfg, TTC(num_subnet=2), use_pp=True, device="cpu")
 
 
 def test_train_common_matches(tmp_path):

@@ -211,7 +211,6 @@ def test_train_ist_cluster_unported_modes_raise():
     cfg = tgat.GATConfig(ds.in_feats, 8, ds.n_classes)
     for kw, match in ((dict(mesh=object()), "distributed"),
                       (dict(lsgd=True), "distributed"),
-                      (dict(checkpoint_dir="ck"), "distributed"),
                       (dict(use_pp=True), "use_pp"),
                       (dict(kind="gcn"), "gcn")):
         with pytest.raises(NotImplementedError, match=match):
