@@ -21,7 +21,8 @@ raising on failure:
 7. GAT kernels: K4, K5 and K6 against their plain versions at the shapes
    of one real batch of the GAT main path (synth-reddit-small, psize 10,
    batch 4), with times beside the segment composite's, each with its
-   profiler time and two launches held bitwise equal;
+   profiler time and two launches held bitwise equal, and K6 beside one
+   ``torch.sparse.mm`` of its dz part alone (alpha in the values);
 8. GAT reference: gradients and three training steps of a GAT
    sub-model (width 256, 2 heads, 2 layers) through K4-K6 and through
    the segment path must agree;
@@ -76,6 +77,23 @@ raising on failure:
     card, and the chunked host forward of the same params held against
     the card's logits at rtol = atol = 0.05, with both walls, the
     host's ``nproc`` and torch threads.
+19. cluster_pp (run after phase 6): ``train_cluster_gcn`` with SAGE
+    h256, 2 layers on phase 6's clusters, once with ``use_pp`` (K1 4
+    launches a step, the first layer skipping its aggregation) and once
+    for 5 epochs on multi-hot labels (sigmoid BCE must fall; micro-F1
+    must beat predicting every label positive), counting K1 launches;
+20. ist_simulation: ``cli.train_ist`` as a function, GCN h256, 2
+    layers, K=4 on synth-reddit-small (self loops, random projection),
+    10 epochs, loop and ``--fused``: the loop's per-round mean losses
+    equal the fused rounds' within 1e-3 relative, and K1 launches 0
+    times (the full graph carries no layout);
+21. lsgd: ``cli.ist_distrib --lsgd`` as a function, SAGE h256, 2
+    layers, K=4 on the GAT main path's clusters, 2 rounds, K1 5
+    launches a step;
+22. ist_gcn: ``train_ist_cluster(model=gcn, kind="gcn")``, GCN h256,
+    K=2, 2 rounds on those clusters (K1 6 a step), and
+    ``train_ist_ultrawide(model=gcn, kind="gcn")``, GCN h2048, 4 hidden
+    layers, K=8, 1 round on the SAGE main path's clusters (K1 9 a step).
 
 Kernel and library times: ``ms`` is device time per call, one CUDA
 event pair around back-to-back calls queued ahead of the card
@@ -322,26 +340,22 @@ def _csr_adjacency(torch, graph, dtype, device, transpose):
     return a.to(dtype).to(device).to_sparse_csr()
 
 
-def phase_kernels(torch, device, sampler):
+def _k1_rows(torch, device, phase, g, widths):
+    """K1 forward and transpose on the layout pair of batch graph ``g``
+    at each (F, dtype) of ``widths``, against its plain version (fp32
+    1e-5, bf16 1e-2 relative to the max), with times beside the bound
+    and one ``torch.sparse.mm``; returns the rows by case, raising on
+    any disagreement."""
     import numpy as np
 
     from gist_tpu_torch.ops import dedup_spmm as K
 
-    batch = sampler.make_batch(next(sampler.iter_node_ids()))
-    g = batch.graph
     if g.dedup is None or g.dedup.pos is not None:
         raise RuntimeError("expected an unreordered dedup layout")
     layouts = {"fwd": g.dedup.to(device), "bwd": g.dedup_t.to(device)}
-    emit({"phase": "kernels", "batch_nodes": batch.n_real_nodes,
-          "batch_edges": batch.n_real_edges, "n_pad": g.n_nodes,
-          "tiles": g.dedup.num_tiles,
-          "jobs": int(g.dedup.job_offsets[-1]),
-          "w_blocks": list(g.dedup.w_blocks.shape),
-          "w_nonzero": int(torch.count_nonzero(g.dedup.w_blocks))})
     rng = np.random.default_rng(0)
     results = {}
-    for f, dtype in ((100, torch.float32), (256, torch.float32),
-                     (256, torch.bfloat16)):
+    for f, dtype in widths:
         x = torch.from_numpy(
             rng.standard_normal((g.n_nodes, f)).astype(np.float32))
         x = x.to(dtype).to(device)
@@ -375,7 +389,7 @@ def phase_kernels(torch, device, sampler):
                                         lambda: torch.sparse.mm(adj, x))
                 lib_note = "torch.sparse.mm on a CSR adjacency"
             ms = _kernel_ms(torch, kernel)
-            row = {"phase": "kernels", "case": f"{direction} F={f} "
+            row = {"phase": phase, "case": f"{direction} F={f} "
                    f"{str(dtype).split('.')[-1]}",
                    "max_abs_err": abs_err, "rel_err": rel_err, "tol": tol,
                    "ms": ms, "call_ms": _call_ms(torch, kernel, reps=20),
@@ -392,6 +406,36 @@ def phase_kernels(torch, device, sampler):
                                    f"{row}")
             results[row["case"]] = row
     return results
+
+
+def _k1_batch_rows(torch, device, phase, sampler, widths):
+    """:func:`_k1_rows` on the next batch of ``sampler``, fp32 at each
+    width, with the batch's size."""
+    batch = sampler.make_batch(next(sampler.iter_node_ids()))
+    emit({"phase": phase, "k1_batch_nodes": batch.n_real_nodes,
+          "k1_batch_edges": batch.n_real_edges})
+    return _k1_rows(torch, device, phase, batch.graph,
+                    [(f, torch.float32) for f in widths])
+
+
+def _k1_errors(rows):
+    return {case: row["rel_err"] for case, row in rows.items()}
+
+
+def phase_kernels(torch, device, sampler):
+    batch = sampler.make_batch(next(sampler.iter_node_ids()))
+    g = batch.graph
+    if g.dedup is None or g.dedup.pos is not None:
+        raise RuntimeError("expected an unreordered dedup layout")
+    emit({"phase": "kernels", "batch_nodes": batch.n_real_nodes,
+          "batch_edges": batch.n_real_edges, "n_pad": g.n_nodes,
+          "tiles": g.dedup.num_tiles,
+          "jobs": int(g.dedup.job_offsets[-1]),
+          "w_blocks": list(g.dedup.w_blocks.shape),
+          "w_nonzero": int(torch.count_nonzero(g.dedup.w_blocks))})
+    return _k1_rows(torch, device, "kernels", g,
+                    ((100, torch.float32), (256, torch.float32),
+                     (256, torch.bfloat16)))
 
 
 def phase_reference(torch, device, sampler):
@@ -746,6 +790,288 @@ def phase_uw_cli_chunked_eval(torch, device):
     return launches
 
 
+def _finite(values):
+    return all(v == v and abs(v) < float("inf") for v in values)
+
+
+def phase_cluster_pp(torch, ds):
+    """Cluster-GCN with ``use_pp`` and with multi-hot labels, SAGE h256
+    with 2 layers (the ``reddit-baseline`` width) on the clusters of the
+    Cluster-GCN phase.  With ``use_pp`` the first layer neither
+    aggregates nor needs a transpose: K1 4 times a step (2L - 2, L = 3
+    weight layers) against 5 without.  The multi-hot run (labels a
+    thresholded random projection of the features, one per class)
+    trains 5 epochs with the sigmoid BCE (lr 3e-3, dropout 0): its loss
+    must fall, and its last val micro-F1 must beat predicting every
+    label positive (2p / (1 + p) at the val rows' positive share p), so
+    a label or threshold mix-up fails.  Returns the K1 launches of both
+    runs."""
+    import dataclasses
+
+    import numpy as np
+
+    from gist_tpu_torch.models.sage import SAGEConfig
+    from gist_tpu_torch.ops import dedup_spmm as K
+    from gist_tpu_torch.train.cluster import train_cluster_gcn
+    from gist_tpu_torch.train.common import TrainConfig
+
+    common = dict(psize=50, batch_size=10, normalize=True, use_f1=True,
+                  verbose=False, device="cuda")
+    dims = (ds.in_feats, 256, ds.n_classes)
+    cfg = SAGEConfig(*dims, n_layers=2, dropout=0.2, use_pp=True)
+    K.launches = 0
+    t0 = time.time()
+    pp = train_cluster_gcn(dataclasses.replace(ds), cfg,
+                           TrainConfig(lr=1e-2, weight_decay=0.0,
+                                       n_epochs=1), use_pp=True, **common)
+    torch.cuda.synchronize()
+    pp_s, pp_launches = time.time() - t0, K.launches
+
+    w = np.random.default_rng(1).standard_normal((ds.in_feats,
+                                                  ds.n_classes))
+    multi = (ds.features @ w > 0).astype(np.float32)
+    val_share = float(multi[ds.val_mask].mean())
+    all_positive_f1 = 2 * val_share / (1 + val_share)
+    cfg = SAGEConfig(*dims, n_layers=2, dropout=0.0)
+    K.launches = 0
+    t0 = time.time()
+    mt = train_cluster_gcn(dataclasses.replace(ds, labels_multi=multi), cfg,
+                           TrainConfig(lr=3e-3, weight_decay=0.0,
+                                       n_epochs=5), **common)
+    torch.cuda.synchronize()
+    mt_s, mt_launches = time.time() - t0, K.launches
+    emit({"phase": "cluster_pp", "use_pp_losses": pp["losses"],
+          "use_pp_val_f1": pp["val_accs"], "use_pp_k1_launches": pp_launches,
+          "use_pp_train_time_s": pp["train_time"], "use_pp_wall_s": pp_s,
+          "multitask_losses": mt["losses"],
+          "multitask_val_micro_f1": mt["val_accs"],
+          "multitask_k1_launches": mt_launches,
+          "multitask_train_time_s": mt["train_time"],
+          "multitask_wall_s": mt_s, "classes": ds.n_classes,
+          "positive_share": float(multi.mean()),
+          "all_positive_val_f1": all_positive_f1})
+    if pp_launches != 4 * 5:
+        raise RuntimeError(f"use_pp: K1 launched {pp_launches} times, want "
+                           f"4 a step (20)")
+    if mt_launches != 5 * 25:
+        raise RuntimeError(f"multitask: K1 launched {mt_launches} times, "
+                           f"want 5 a step (125)")
+    if not _finite(pp["losses"] + mt["losses"] + pp["val_accs"]
+                   + mt["val_accs"]):
+        raise RuntimeError("non-finite loss or score")
+    if not mt["losses"][-1] < mt["losses"][0]:
+        raise RuntimeError(f"the BCE loss did not fall: {mt['losses']}")
+    if not all_positive_f1 < mt["val_accs"][-1] <= 1.0:
+        raise RuntimeError(f"micro-F1 {mt['val_accs'][-1]} does not beat "
+                           f"all-positive {all_positive_f1}")
+    return pp_launches + mt_launches
+
+
+def phase_ist_simulation(torch):
+    """The GIST simulation through its entry point, ``cli.train_ist``
+    as a function: GCN h256, 2 layers, K=4 (the ``small-ist`` widths,
+    split input and output) on synth-reddit-small with self loops and
+    the random projection, ``iter_per_site`` 5, 10 epochs, dropout 0;
+    once in loop mode, once ``--fused``.  The full graph carries no
+    layout, so K1 launches 0 times; the loop's losses averaged over each
+    round equal the fused run's round losses within 1e-3 relative (the
+    segment path's atomics move the last bits between the runs)."""
+    from gist_tpu_torch.cli import train_ist
+    from gist_tpu_torch.ops import dedup_spmm as K
+
+    argv = ["--dataset", "synth-reddit-small", "--n-hidden", "256",
+            "--n-layers", "2", "--num_subnet", "4", "--iter_per_site", "5",
+            "--n-epochs", "10", "--dropout", "0", "--split_output", "True"]
+    out, launches, walls = {}, 0, {}
+    for mode, flags in (("loop", []), ("fused", ["--fused"])):
+        K.launches = 0
+        t0 = time.time()
+        out[mode] = train_ist.main(argv + flags)
+        torch.cuda.synchronize()
+        walls[mode] = time.time() - t0
+        launches += K.launches
+    loop, fused = out["loop"], out["fused"]
+    round_means = [sum(loop["losses"][i:i + 5]) / 5 for i in (0, 5)]
+    diff = _rel_diff(round_means, fused["losses"])
+    emit({"phase": "ist_simulation", "loop_losses": loop["losses"],
+          "loop_round_means": round_means, "fused_losses": fused["losses"],
+          "loss_rel_diff": diff, "tol": 1e-3,
+          "loop_val_acc": loop["val_accs"], "fused_val_acc": fused["val_accs"],
+          "loop_mean_epoch_s": loop["mean_epoch_s"],
+          "fused_mean_epoch_s": fused["mean_epoch_s"],
+          "loop_kteps": loop["kteps"], "fused_kteps": fused["kteps"],
+          "wall_s": walls, "k1_launches": launches})
+    if launches != 0:
+        raise RuntimeError(f"K1 launched {launches} times on a graph "
+                           f"without a layout")
+    if len(loop["losses"]) != 10 or len(fused["losses"]) != 2:
+        raise RuntimeError("expected 10 epochs and 2 fused rounds")
+    if not _finite(loop["losses"] + fused["losses"] + loop["val_accs"]):
+        raise RuntimeError("non-finite loss or accuracy")
+    if not diff <= 1e-3:
+        raise RuntimeError(f"loop and fused rounds differ by {diff}")
+
+
+def phase_lsgd(torch, device, sampler):
+    """The local-SGD baseline through its entry point, ``cli.ist_distrib
+    --lsgd`` as a function: SAGE h256, 2 layers, K=4 (the ``reddit-lsgd``
+    widths) on synth-reddit-small, psize 10, batch 4 (the GAT main
+    path's clusters), ``iter_per_site`` 4, 2 rounds.  Every batch is
+    over ``TILES_MIN_EDGES``, so each of the 4 workers' 4 steps a round
+    runs K1 5 times (L forward, L - 1 transpose, L = 3).  Then K1 is
+    held against its plain version, forward and transpose, at the widths
+    this path aggregates (602 and 256) on a batch of ``sampler`` (the
+    same clusters).  Returns the launches and those rows."""
+    from gist_tpu_torch.cli import ist_distrib
+    from gist_tpu_torch.ops import dedup_spmm as K
+    from gist_tpu_torch.sampler import TILES_MIN_EDGES
+
+    K.launches = 0
+    t0 = time.time()
+    r = ist_distrib.main([
+        "--dataset", "synth-reddit-small", "--n-hidden", "256",
+        "--n-layers", "2", "--num_subnet", "4", "--iter_per_site", "4",
+        "--psize", "10", "--batch-size", "4", "--n-epochs", "16",
+        "--lr", "3e-2", "--dropout", "0.2", "--lsgd"])
+    torch.cuda.synchronize()
+    wall, launches = time.time() - t0, K.launches
+    steps = len(r["losses"]) * 4 * 4
+    k1 = _k1_batch_rows(torch, device, "lsgd", sampler, (602, 256))
+    emit({"phase": "lsgd", "rounds": len(r["losses"]), "steps": steps,
+          "losses": r["losses"], "val_acc": r["val_accs"],
+          "round_wall_s": r["round_wall_s"],
+          "edges_per_batch": r["edges_per_batch"],
+          "edges_per_sec_jax_formula": r["edges_per_sec"],
+          "wall_s": wall, "k1_launches": launches,
+          "k1_rel_err": _k1_errors(k1)})
+    if len(r["losses"]) != 2 or len(r["edges_per_batch"]) != 32:
+        raise RuntimeError("expected 2 rounds of 16 batches")
+    if not all(e >= TILES_MIN_EDGES for e in r["edges_per_batch"]):
+        raise RuntimeError("a batch fell under the layout's edge threshold")
+    if launches != 5 * steps:
+        raise RuntimeError(f"K1 launched {launches} times, want 5 a step "
+                           f"({5 * steps})")
+    if not _finite(r["losses"] + r["val_accs"]):
+        raise RuntimeError("non-finite loss or accuracy")
+    return launches, k1
+
+
+def _gcn_k1_per_step(cfg):
+    """K1 launches of one GCN step on a batch with a layout: one forward
+    a layer, and one transpose where the aggregated tensor needs a
+    gradient, that is past layer 0, or at layer 0 when it projects
+    before it aggregates (``graph_conv``: in > out)."""
+    dims = cfg.layer_dims()
+    return len(dims) + sum(1 for i, (d_in, d_out) in enumerate(dims)
+                           if i > 0 or d_in > d_out)
+
+
+def _gcn_k1_widths(cfg):
+    """The widths K1 aggregates at in a GCN step: each layer's output
+    width where it projects first (in > out), else its input width."""
+    return sorted({min(d_in, d_out) for d_in, d_out in cfg.layer_dims()},
+                  reverse=True)
+
+
+def phase_ist_gcn(torch, device, ds_r, ds, r_sampler, a_sampler):
+    """GCN in both IST trainers.  ``train_ist_cluster(model=gcn,
+    kind="gcn")``: GCN h256, 2 layers, K=2 (the ``reddit-ist`` widths)
+    on the lsgd phase's clusters, 2 rounds of 2 steps a subnet; each
+    layer's aggregation feeds a gradient (layer 0 projects first, 602 >
+    128; layer 1's input needs one; layer 2 projects first, 128 > 41),
+    so K1 runs 6 times a step.  ``train_ist_ultrawide(model=gcn,
+    kind="gcn")``: GCN h2048, 4 hidden layers, K=8 on the SAGE main
+    path's clusters, 1 round of 5 steps a subnet, eval on the card;
+    layer 0 aggregates the raw input first (100 < 256) and needs no
+    transpose, so K1 runs 9 times a step.  Then K1 is held against its
+    plain version, forward and transpose, at the widths each run
+    aggregates (128 and 41; 256, 100 and 47) on a batch of its clusters
+    (``r_sampler``, ``a_sampler``).  Returns the launches of both and
+    those rows."""
+    import dataclasses
+
+    from gist_tpu_torch.models import gcn
+    from gist_tpu_torch.ops import dedup_spmm as K
+    from gist_tpu_torch.sampler import TILES_MIN_EDGES
+    from gist_tpu_torch.train.common import TrainConfig
+    from gist_tpu_torch.train.ist_cluster import train_ist_cluster
+    from gist_tpu_torch.train.ist_ultrawide import train_ist_ultrawide
+
+    ic_cfg = gcn.GCNConfig(ds_r.in_feats, 256, ds_r.n_classes, n_layers=2,
+                           dropout=0.2)
+    uw_cfg = gcn.GCNConfig(ds.in_feats, 2048, ds.n_classes, n_layers=4,
+                           dropout=0.2)
+    sub = dict(split_input=False, split_output=True)
+    ic_per_step = _gcn_k1_per_step(ic_cfg.sub_config(num_subnet=2, **sub))
+    uw_per_step = _gcn_k1_per_step(uw_cfg.sub_config(num_subnet=8, **sub))
+    K.launches = 0
+    t0 = time.time()
+    ic = train_ist_cluster(
+        dataclasses.replace(ds_r), ic_cfg,
+        TrainConfig(lr=3e-2, weight_decay=0.0, n_epochs=4, num_subnet=2,
+                    iter_per_site=2),
+        psize=10, batch_size=4, model=gcn, kind="gcn", verbose=False,
+        device="cuda")
+    torch.cuda.synchronize()
+    ic_s, ic_launches = time.time() - t0, K.launches
+    ic_steps = len(ic["losses"]) * 2 * 2
+
+    K.launches = 0
+    t0 = time.time()
+    uw = train_ist_ultrawide(
+        dataclasses.replace(ds), uw_cfg,
+        TrainConfig(lr=1e-2, weight_decay=0.0, n_epochs=8, num_subnet=8,
+                    iter_per_site=5),
+        psize=50, batch_size=10, normalize=True, use_f1=True,
+        eval_on_cpu=False, model=gcn, kind="gcn", verbose=False,
+        device="cuda")
+    torch.cuda.synchronize()
+    uw_s, uw_launches = time.time() - t0, K.launches
+    uw_steps = len(uw["losses"]) * 8 * 5
+    ic_k1 = _k1_batch_rows(
+        torch, device, "ist_gcn", r_sampler,
+        _gcn_k1_widths(ic_cfg.sub_config(num_subnet=2, **sub)))
+    uw_k1 = _k1_batch_rows(
+        torch, device, "ist_gcn", a_sampler,
+        _gcn_k1_widths(uw_cfg.sub_config(num_subnet=8, **sub)))
+    emit({"phase": "ist_gcn",
+          "ist_cluster": {"rounds": len(ic["losses"]), "steps": ic_steps,
+                          "losses": ic["losses"], "val_acc": ic["val_accs"],
+                          "round_wall_s": ic["round_wall_s"],
+                          "edges_per_batch": ic["edges_per_batch"],
+                          "k1_launches": ic_launches,
+                          "k1_per_step": ic_per_step, "wall_s": ic_s,
+                          "k1_rel_err": _k1_errors(ic_k1)},
+          "ultrawide": {"rounds": len(uw["losses"]), "steps": uw_steps,
+                        "losses": uw["losses"], "val_f1": uw["val_accs"],
+                        "round_wall_s": uw["round_wall_s"],
+                        "host_prep_s": uw["host_prep_s"],
+                        "device_sync_s": uw["device_sync_s"],
+                        "eval_wall_s": uw["eval_wall_s"],
+                        "edges_per_batch": uw["edges_per_batch"],
+                        "k1_launches": uw_launches,
+                        "k1_per_step": uw_per_step, "wall_s": uw_s,
+                        "k1_rel_err": _k1_errors(uw_k1)}})
+    if (len(ic["losses"]), len(uw["losses"])) != (2, 1):
+        raise RuntimeError("expected 2 IST-cluster rounds and 1 ultra-wide "
+                           "round")
+    if not all(e >= TILES_MIN_EDGES for e in
+               ic["edges_per_batch"] + uw["edges_per_batch"]):
+        raise RuntimeError("a batch fell under the layout's edge threshold")
+    if ic_launches != ic_per_step * ic_steps:
+        raise RuntimeError(f"IST cluster GCN: K1 launched {ic_launches} "
+                           f"times, want {ic_per_step} a step")
+    if uw_launches != uw_per_step * uw_steps:
+        raise RuntimeError(f"ultra-wide GCN: K1 launched {uw_launches} "
+                           f"times, want {uw_per_step} a step")
+    if not _finite(ic["losses"] + uw["losses"] + ic["val_accs"]
+                   + uw["val_accs"]):
+        raise RuntimeError("non-finite loss or accuracy")
+    return ic_launches, uw_launches, {
+        **{("ist_cluster_gcn", c): r for c, r in ic_k1.items()},
+        **{("ultrawide_gcn", c): r for c, r in uw_k1.items()}}
+
+
 def _layout_bytes(layout):
     """W of the real jobs, their slots and the tile offsets."""
     jobs = int(layout.job_offsets[-1])
@@ -774,12 +1100,13 @@ def _redesign_checks(torch, kernel, kernel_name):
 
 
 def _gat_row(torch, name, case, got, want, tol, kernel, plain, segment,
-             nbytes, flops, dtype, kernel_name=None):
-    """Time a GAT kernel beside its plain version and the segment
-    composite; raise unless every output is finite and within ``tol`` of
-    the plain result relative to its max.  With ``kernel_name`` (a
-    redesigned kernel) also its profiler time, and raise unless two
-    launches give the same bits."""
+             nbytes, flops, dtype, kernel_name=None, dz_library=None):
+    """Time a GAT kernel beside its plain version, the segment composite
+    and, where one is given, the ``dz_library`` call (a library call of
+    part of the function, so ``library_ms`` stays None); raise unless every
+    output is finite and within ``tol`` of the plain result relative to
+    its max.  With ``kernel_name`` (a redesigned kernel) also its
+    profiler time, and raise unless two launches give the same bits."""
     torch.cuda.synchronize()
     abs_err = rel_err = 0.0
     for a, b in zip(got, want):
@@ -795,6 +1122,9 @@ def _gat_row(torch, name, case, got, want, tol, kernel, plain, segment,
            "call_ms": _call_ms(torch, kernel, reps=20),
            "plain_ms": _call_ms(torch, plain, reps=3),
            "segment_ms": _kernel_ms(torch, segment),
+           "library_ms": None,
+           "dz_library_ms": (None if dz_library is None
+                             else _kernel_ms(torch, dz_library)),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_bytes": nbytes, "useful_flops": flops}
     if kernel_name:
@@ -813,7 +1143,10 @@ def phase_gat_kernels(torch, device, sampler):
     batch of the GAT main path.  ``segment_ms`` is the port's segment
     composite on the same batch (K4: the attention forward; K5 and K6:
     the whole backward of one head, which both together replace); no
-    single PyTorch call computes these functions.  Each row prints its
+    single PyTorch call computes these functions, but K6's
+    ``dz_library_ms`` times one ``torch.sparse.mm`` of its dz part alone
+    (the transpose pattern with the head's alpha in its values, times G;
+    as K9's row does).  Each row prints its
     error beside its bar: K4 1e-5 relative (fp32), K5 and K6 1e-4.  No
     kernel adds with atomics, so K5's and K6's error measures only their
     order of summation (a lane's columns of each dot product, then one
@@ -893,14 +1226,21 @@ def phase_gat_kernels(torch, device, sampler):
             _layout_bytes(tf) + rn * o * 4 + n * o * item + rn * 4 * 5
             + n * 4, nnz * (2 * o + 10), dtype,
             kernel_name="gat_bwd_b1_kernel")
+        from gist_tpu_torch.ops import gat_tiled as GT
+        got_b2 = G.gat_bwd_b2(*b2_args)
+        dz_library = _alpha_spmm(
+            torch, GT, g, device, sh, dh, G._to_nodes(tf, m0, n).float(),
+            G._to_nodes(tf, l0, n).float(), slope, gh, tol_b, got_b2[0],
+            name="K6")
         rows[("K6", tag)] = _gat_row(
-            torch, "K6", tag, G.gat_bwd_b2(*b2_args),
+            torch, "K6", tag, got_b2,
             G.gat_bwd_b2_reference(*b2_args), tol_b,
             lambda: G.gat_bwd_b2(*b2_args),
             lambda: G.gat_bwd_b2_reference(*b2_args), seg_bwd,
             _layout_bytes(tt) + 2 * rt * o * item + rt * 8 + n * o * 4
             + n * 16, nnz_t * (4 * o + 10), dtype,
-            kernel_name="gat_bwd_b2_kernel")
+            kernel_name="gat_bwd_b2_kernel", dz_library=dz_library)
+        del got_b2, dz_library
 
     # K4 at H=2, O=256 in one launch (a warp per (row, head), a row's
     # heads neighbours in launch order) against one launch per head on
@@ -1498,12 +1838,13 @@ def _library_spmm(torch, g, dtype, device, transpose, x):
 
 
 def _alpha_spmm(torch, GT, g, device, src, dst, m, l, slope, gg, tol,
-                want):
-    """K9's dz part as one library call: ``torch.sparse.mm`` of the
-    transpose pattern (rows the original senders, columns the original
-    receivers, node order) with each edge's alpha in its values, times
-    G.  The matrix is built once and not timed; raise unless its product
-    is within ``tol`` of ``want`` (K9's dz) relative to its max."""
+                want, name="K9"):
+    """The dz part of K9 (or K6) as one library call: ``torch.sparse.mm``
+    of the transpose pattern (rows the original senders, columns the
+    original receivers, node order) with each edge's alpha in its
+    values, times G.  The matrix is built once and not timed; raise
+    unless its product is within ``tol`` of ``want`` (the kernel's dz)
+    relative to its max."""
     e, n = g.n_edges, g.n_nodes
     s = g.senders[:e].long().to(device)
     r = g.receivers[:e].long().to(device)
@@ -1515,7 +1856,7 @@ def _alpha_spmm(torch, GT, g, device, src, dst, m, l, slope, gg, tol,
                 / want[:n].float().abs().max().clamp(min=1e-30))
     if not err <= tol:
         raise RuntimeError(f"the dz part by torch.sparse.mm is {err} off "
-                           f"K9's dz")
+                           f"{name}'s dz")
     return lambda: torch.sparse.mm(adj, gg)
 
 
@@ -2012,6 +2353,10 @@ def main():
     emit({"phase": "cluster_gcn", "seconds": time.time() - t0})
 
     t0 = time.time()
+    pp_launches = phase_cluster_pp(torch, ds)
+    emit({"phase": "cluster_pp", "seconds": time.time() - t0})
+
+    t0 = time.time()
     resume_launches = phase_uw_resume(torch, ds)
     emit({"phase": "uw_resume", "seconds": time.time() - t0})
 
@@ -2030,6 +2375,19 @@ def main():
     t0 = time.time()
     gat_launches = phase_gat_main_path(torch, dataclasses.replace(ds_r))
     emit({"phase": "gat_main_path", "seconds": time.time() - t0})
+
+    t0 = time.time()
+    phase_ist_simulation(torch)
+    emit({"phase": "ist_simulation", "seconds": time.time() - t0})
+
+    t0 = time.time()
+    lsgd_launches, lsgd_k1 = phase_lsgd(torch, device, gat_sampler)
+    emit({"phase": "lsgd", "seconds": time.time() - t0})
+
+    t0 = time.time()
+    ic_gcn_launches, uw_gcn_launches, gcn_k1 = phase_ist_gcn(
+        torch, device, dataclasses.replace(ds_r), ds, gat_sampler, sampler)
+    emit({"phase": "ist_gcn", "seconds": time.time() - t0})
     del gat_sampler, sampler
 
     from gist_tpu_torch.graph import graph_from_edges
@@ -2105,13 +2463,20 @@ def main():
         "source": "gist_tpu_torch/csrc/dedup_spmm.cu",
         "replaces": "gist_tpu/ops/pallas_spmm.py:66",
         "launches": launches + full_launches + resume_launches
-        + cli_launches,
+        + cli_launches + pp_launches + lsgd_launches + ic_gcn_launches
+        + uw_gcn_launches,
         "launches_by_path": {"sage_ultrawide": launches,
                              "full_graph_gcn": full_launches,
                              "uw_resume": resume_launches,
-                             "uw_cli_synth_reddit": cli_launches},
+                             "uw_cli_synth_reddit": cli_launches,
+                             "cluster_pp": pp_launches,
+                             "ist_simulation": 0,
+                             "lsgd": lsgd_launches,
+                             "ist_cluster_gcn": ic_gcn_launches,
+                             "ultrawide_gcn": uw_gcn_launches},
         "max_abs_err": max(c["max_abs_err"] for c in [
-            *cases.values(), *chunked_rows.values()]
+            *cases.values(), *chunked_rows.values(), *lsgd_k1.values(),
+            *gcn_k1.values()]
             if c["case"].endswith("float32")),
         "ms": main_case["ms"], "call_ms": main_case["call_ms"],
         "plain_ms": main_case["plain_ms"],
@@ -2154,10 +2519,12 @@ def main():
             "ms": main_row["ms"], "call_ms": main_row["call_ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"], "library_ms": None,
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
             "segment_ms": main_row["segment_ms"],
-            **{k: main_row[k] for k in ("profiler_ms", "bitwise_repeat")
-               if k in main_row}})
+            **{k: main_row[k] for k in ("dz_library_ms", "profiler_ms",
+                                        "bitwise_repeat")
+               if main_row.get(k) is not None}})
     v1_kernels = (
         ("K3", "tiled_spmm", "tiled_spmm.cu", "pallas_spmm.py:442",
          "fwd F=256 float32", "full_graph_gcn"),

@@ -45,7 +45,7 @@ def main(argv=None):
         in_feats=ds.in_feats, n_hidden=args.n_hidden, n_classes=ds.n_classes,
         n_layers=args.n_layers, dropout=args.dropout,
         use_layernorm=args.use_ln or args.use_layernorm == "True",
-        dtype=args.dtype)
+        use_pp=args.use_pp, dtype=args.dtype)
     tc = TrainConfig(lr=args.lr, weight_decay=args.weight_decay,
                      n_epochs=args.n_epochs, seed=args.rnd_seed)
     results = train_cluster_gcn(

@@ -48,10 +48,6 @@ def main(argv=None):
     from gist_tpu_torch.train.common import write_results
 
     ds = load_dataset(args.dataset)
-    if ds.multitask:
-        raise NotImplementedError(
-            "multitask datasets wait for the slice that ports the "
-            "multitask labels")
     if args.normalize:
         ds.normalize_features()
 
@@ -78,7 +74,13 @@ def main(argv=None):
     logits = logits.cpu().numpy()
 
     results = {"checkpoint": ck, "dataset": ds.name}
-    if args.use_f1:
+    if ds.multitask:
+        # threshold-at-0 micro-F1 on the multi-hot matrix
+        results["val"] = micro_f1(logits, ds.labels_multi, ds.val_mask,
+                                  multitask=True)
+        results["test"] = micro_f1(logits, ds.labels_multi, ds.test_mask,
+                                   multitask=True)
+    elif args.use_f1:
         results["val"] = micro_f1(logits, ds.labels, ds.val_mask)
         results["test"] = micro_f1(logits, ds.labels, ds.test_mask)
     else:

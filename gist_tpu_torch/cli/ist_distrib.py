@@ -7,8 +7,9 @@ and, with ``--ultra-wide``, the host-offloaded ultra-wide trainer.
 
 One process runs the K subnets one after another on one device.  With
 ``--checkpoint-dir`` each eval round is saved and a rerun of the same
-command resumes after the newest round.  ``--use-pp`` and ``--lsgd``
-reach the trainers, which raise until their slices are ported.
+command resumes after the newest round.  ``--use-pp`` precomputes the
+first layer's aggregation (the sampler's features and the model's
+skip); ``--lsgd`` trains the local-SGD baseline.
 """
 
 import argparse
@@ -51,7 +52,8 @@ def main(argv=None):
     cfg = sage.SAGEConfig(
         in_feats=ds.in_feats, n_hidden=args.n_hidden, n_classes=ds.n_classes,
         n_layers=args.n_layers, dropout=args.dropout,
-        use_layernorm=str2bool(args.use_layernorm), dtype=args.dtype)
+        use_layernorm=str2bool(args.use_layernorm), use_pp=args.use_pp,
+        dtype=args.dtype)
     tc = TrainConfig(lr=args.lr, weight_decay=args.weight_decay,
                      n_epochs=args.n_epochs, seed=args.rnd_seed,
                      num_subnet=args.num_subnet,

@@ -79,6 +79,20 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return (nll * m).sum() / m.sum().clamp(min=1.0)
 
 
+def masked_bce_multitask(logits: torch.Tensor, labels: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """Sigmoid BCE over (node, class) cells, meaned over the masked
+    nodes' cells: ``binary_cross_entropy_with_logits(logits[mask],
+    labels[mask])`` without boolean indexing, in the numerically stable
+    form ``max(x, 0) - x y + log1p(exp(-|x|))`` (the multitask loss)."""
+    labels = labels.to(logits.dtype)
+    bce = (logits.clamp(min=0.0) - logits * labels
+           + torch.log1p(torch.exp(-logits.abs())))
+    m = mask.to(logits.dtype)[:, None]
+    denom = (m.sum() * logits.shape[-1]).clamp(min=1.0)
+    return (bce * m).sum() / denom
+
+
 def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
     pred = logits.argmax(dim=-1)
@@ -87,15 +101,26 @@ def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor,
     return correct.sum() / m.sum().clamp(min=1.0)
 
 
-def micro_f1(logits: np.ndarray, labels: np.ndarray,
-             mask: np.ndarray) -> float:
-    """Micro-averaged F1 of single-label predictions, which equals the
-    accuracy over the mask (-1 for an empty mask).  The multitask
-    variant waits for the port of multi-hot datasets."""
+def micro_f1(logits: np.ndarray, labels: np.ndarray, mask: np.ndarray,
+             multitask: bool = False) -> float:
+    """Micro-averaged F1 over the mask (-1 for an empty mask).
+
+    Single-label (default): argmax predictions, which equals the
+    accuracy.  Multitask: ``labels`` are (N, C) multi-hot, predictions
+    threshold the logits at 0, and the score is ``2TP / (2TP + FP +
+    FN)`` pooled over all (node, class) cells (0 with no positives)."""
     mask = np.asarray(mask).astype(bool)
     if mask.sum() == 0:
         return -1.0
     logits = np.asarray(logits)
     labels = np.asarray(labels)
+    if multitask:
+        pred = (logits[mask] > 0).astype(np.int64)
+        true = (labels[mask] > 0).astype(np.int64)
+        tp = int(np.sum(pred * true))
+        fp = int(np.sum(pred * (1 - true)))
+        fn = int(np.sum((1 - pred) * true))
+        denom = 2 * tp + fp + fn
+        return float(2 * tp / denom) if denom else 0.0
     pred = np.argmax(logits, axis=-1)
     return float((pred[mask] == labels[mask]).mean())

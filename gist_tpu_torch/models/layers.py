@@ -1,5 +1,5 @@
-"""Layer primitives of the SAGE and GCN stacks — pure functions over
-tensors.
+"""Layer primitives of the SAGE, GCN and GAT stacks — pure functions
+over tensors.
 
 Dense weights keep the JAX package's ``(in, out)`` layout, so the
 forward is ``x @ w`` and JAX parameters load unchanged.
@@ -24,13 +24,21 @@ def whole_tensor_layer_norm(h: torch.Tensor,
     return (h - mean) * torch.rsqrt(var + eps)
 
 
-def layer_norm(h: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Affine-free per-row LayerNorm over the feature dim (the
-    ISTSAGELayer's).  The affine variant of the plain GraphSAGE stack
-    waits for that model's port."""
+def layer_norm(h: torch.Tensor, scale: Optional[torch.Tensor] = None,
+               bias: Optional[torch.Tensor] = None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Per-row LayerNorm over the feature dim.  With ``scale``/``bias``
+    it is ``nn.LayerNorm(d, elementwise_affine=True)`` (the plain
+    GraphSAGE stack's); without, the affine-free variant of the
+    ISTSAGELayer."""
     mean = h.mean(dim=-1, keepdim=True)
     var = (h - mean).square().mean(dim=-1, keepdim=True)
-    return (h - mean) * torch.rsqrt(var + eps)
+    out = (h - mean) * torch.rsqrt(var + eps)
+    if scale is not None:
+        out = out * scale
+    if bias is not None:
+        out = out + bias
+    return out
 
 
 def dropout(h: torch.Tensor, rate: float,
@@ -53,24 +61,38 @@ def sage_layer(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     use_layer_norm: bool = True,
+    affine_ln: bool = False,
     activation=None,
+    aggregate_first: bool = True,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
-    """The ISTSAGELayer:
+    """The SAGE layer:
     ``ah = (A x) * (1/in_deg); h = act(LN(dropout([x || ah]) @ w + b))``.
 
-    Dtypes promote as in the JAX package: the fp32 degree scale lifts a
-    bf16 ``ah`` (and with it the concat and the product) to fp32."""
-    deg = graph.in_degrees
-    inv_deg = torch.where(deg > 0, 1.0 / deg.clamp(min=1.0),
-                          torch.zeros_like(deg))[:, None]
-    ah = aggregate(graph, x, backend=backend) * inv_deg
-    dt = torch.promote_types(x.dtype, ah.dtype)
-    h = dropout(torch.cat([x.to(dt), ah], dim=1), dropout_rate, generator)
+    ``affine_ln=False`` is the ISTSAGELayer; ``affine_ln=True`` scales
+    and shifts the LayerNorm by ``params["ln_scale"]``/``["ln_bias"]``
+    (the plain GraphSAGE layer).  ``aggregate_first=False`` skips the
+    aggregation: the input is then already ``[x || ah]``, 2*in wide (the
+    ``use_pp`` first layer in training).  Dtypes promote as in the JAX
+    package: the fp32 degree scale lifts a bf16 ``ah`` (and with it the
+    concat and the product) to fp32."""
+    if aggregate_first:
+        deg = graph.in_degrees
+        inv_deg = torch.where(deg > 0, 1.0 / deg.clamp(min=1.0),
+                              torch.zeros_like(deg))[:, None]
+        ah = aggregate(graph, x, backend=backend) * inv_deg
+        dt = torch.promote_types(x.dtype, ah.dtype)
+        h = torch.cat([x.to(dt), ah], dim=1)
+    else:
+        h = x
+    h = dropout(h, dropout_rate, generator)
     dt = torch.promote_types(h.dtype, params["w"].dtype)
     h = h.to(dt) @ params["w"].to(dt) + params["b"].to(dt)
     if use_layer_norm:
-        h = layer_norm(h)
+        if affine_ln:
+            h = layer_norm(h, params["ln_scale"], params["ln_bias"])
+        else:
+            h = layer_norm(h)
     if activation is not None:
         h = activation(h)
     return h
@@ -110,3 +132,21 @@ def graph_conv(
     if activation is not None:
         h = activation(h)
     return h
+
+
+def gat_layer(graph: Graph, x: torch.Tensor, params: dict, *,
+              negative_slope: float = 0.01) -> torch.Tensor:
+    """Single-head GAT layer (``gist_tpu/models/layers.py:gat_layer``):
+    ``z = x @ w; e = leaky_relu(a . [z_s || z_r]); alpha = softmax_r(e);
+    h_r = sum alpha z_s``, as SDDMM, segment softmax and weighted sum.
+    ``params`` holds ``w`` (in, out) and ``attn`` (2*out,): its first
+    half dots z_src, its second z_dst."""
+    from gist_tpu_torch.ops.segment import (sddmm_concat, segment_softmax,
+                                            segment_weighted_sum)
+    w, attn = params["w"], params["attn"]
+    out_dim = w.shape[1]
+    z = x @ w
+    scores = sddmm_concat(graph, z, attn[:out_dim], attn[out_dim:])
+    scores = torch.nn.functional.leaky_relu(scores, negative_slope)
+    alpha = segment_softmax(graph, scores)
+    return segment_weighted_sum(graph, z, alpha)

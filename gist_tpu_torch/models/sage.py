@@ -1,12 +1,18 @@
-"""The IST-capable SAGE stack (``gist_tpu/models/sage.py:init/apply``):
-an ISTSAGELayer stack — affine-free LayerNorm, dropout between concat
-and linear, LayerNorm + ReLU on every layer but the output layer.
+"""GraphSAGE-style stacks (``gist_tpu/models/sage.py``).
+
+* :func:`init`/:func:`apply` — the IST-capable stack: ISTSAGELayers
+  (affine-free LayerNorm, dropout between concat and linear), LayerNorm
+  + ReLU on every layer but the output layer.
+* :func:`init_graphsage`/:func:`apply_graphsage` — the plain GraphSAGE
+  stack, with affine LayerNorm on every layer but the output layer.
 
 Parameters are ``{"layers": [{"w": (2*in, out), "b": (out,)}]}`` of
-tensors.  :func:`apply_chunked_host` is the memory-bounded full-graph
+tensors (plus ``ln_scale``/``ln_bias`` (out,) on the plain stack's
+affine layers).  With ``use_pp`` the sampler's features are already
+``[x || (A x)/deg]`` (2*in wide) and both stacks skip the first layer's
+aggregation in training; the eval reads the raw features and
+aggregates.  :func:`apply_chunked_host` is the memory-bounded full-graph
 eval on the host for widths whose activations exceed device memory.
-The plain GraphSAGE variant with affine LayerNorm and the ``use_pp``
-first-layer precomputation wait for a later slice.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ class SAGEConfig:
     split_input: bool = False
     split_output: bool = False
     num_subnet: int = 1
+    use_pp: bool = False       # first-layer aggregation precomputed
     # compute dtype inside apply ("float32" or "bfloat16"); logits are
     # always returned fp32
     dtype: str = "float32"
@@ -75,8 +82,9 @@ def apply(
     generator: Optional[torch.Generator] = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
-    """Stack forward: every layer aggregates; dropout draws from
-    ``generator`` in train mode."""
+    """Stack forward: every layer aggregates, but for the first in train
+    mode with ``cfg.use_pp``; dropout draws from ``generator`` in train
+    mode."""
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
     layers = params["layers"]
@@ -94,6 +102,7 @@ def apply(
             generator=generator if train else None,
             use_layer_norm=cfg.use_layernorm and not is_last,
             activation=None if is_last else torch.relu,
+            aggregate_first=not (i == 0 and cfg.use_pp and train),
             backend=backend,
         )
     return h.float()
@@ -120,7 +129,7 @@ def apply_chunked_host(
     row CSR matrix, the linears in ``node_chunk``-node chunks, fp16
     storage of the activations (``store_dtype``) and fp32 compute, and
     an fp32 output layer.  ``params`` is a numpy (or array-like) tree.
-    Eval only: no dropout.
+    Eval only: no dropout, and no ``use_pp`` skip (the eval aggregates).
 
     ``GIST_EVAL_BACKEND`` picks the path: ``auto`` (default) and
     ``torch`` take the torch-CPU one (:func:`_apply_chunked_torch`,
@@ -232,3 +241,56 @@ def _apply_chunked_torch(params, senders, receivers, x, cfg, *,
             del ah
             h = out
     return h.numpy()
+
+
+def init_graphsage(generator: torch.Generator, cfg: SAGEConfig) -> dict:
+    """The plain GraphSAGE stack: ``n_layers`` hidden layers of width
+    ``n_hidden`` and the output layer, w and b ~ U(-s, s), s =
+    1/sqrt(2*in); every layer but the output one has an affine
+    LayerNorm (scale 1, bias 0)."""
+    dims = [(cfg.in_feats, cfg.n_hidden)]
+    dims += [(cfg.n_hidden, cfg.n_hidden)] * (cfg.n_layers - 1)
+    dims += [(cfg.n_hidden, cfg.n_classes)]
+    layers = []
+    for i, (d_in, d_out) in enumerate(dims):
+        fan_in = 2 * d_in
+        layer = {
+            "w": torch_linear_uniform(generator, (2 * d_in, d_out), fan_in),
+            "b": torch_linear_uniform(generator, (d_out,), fan_in),
+        }
+        if i < len(dims) - 1:
+            layer["ln_scale"] = torch.ones(d_out, device=generator.device)
+            layer["ln_bias"] = torch.zeros(d_out, device=generator.device)
+        layers.append(layer)
+    return {"layers": layers}
+
+
+def apply_graphsage(
+    params: dict,
+    graph: Graph,
+    x: torch.Tensor,
+    cfg: SAGEConfig,
+    *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """The plain GraphSAGE forward: affine LayerNorm + ReLU on every
+    layer but the last, whatever ``cfg.use_layernorm``; with
+    ``cfg.use_pp`` the first layer skips its aggregation in training."""
+    layers = params["layers"]
+    n = len(layers)
+    h = x
+    for i, layer in enumerate(layers):
+        is_last = i == n - 1
+        h = sage_layer(
+            graph, h, layer,
+            dropout_rate=cfg.dropout if train else 0.0,
+            generator=generator if train else None,
+            use_layer_norm=not is_last,
+            affine_ln=not is_last,
+            activation=None if is_last else torch.relu,
+            aggregate_first=not (i == 0 and cfg.use_pp and train),
+            backend=backend,
+        )
+    return h

@@ -2,8 +2,12 @@
 per-batch path: one optimizer step per cluster batch, full-graph eval
 every ``eval_every`` epochs, wall clock excluding eval.  The batches
 come through ``prefetch``, so the host builds the next batch while the
-device runs the step.  The epoch-scanned variant (``scan_batches``) is
-not ported."""
+device runs the step.  A multitask dataset (``labels_multi`` set)
+trains with the sigmoid BCE on its multi-hot labels and evaluates the
+threshold micro-F1; ``use_pp`` hands the model precomputed first-layer
+features (``ClusterSampler(use_pp=True)``; pass a config with
+``use_pp=True`` too, so the model skips that aggregation).  The
+epoch-scanned variant (``scan_batches``) is not ported."""
 
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from gist_tpu_torch.data.container import Dataset
 from gist_tpu_torch.graph import graph_from_edges
 from gist_tpu_torch.models import sage
 from gist_tpu_torch.models.common import (masked_accuracy,
+                                          masked_bce_multitask,
                                           masked_cross_entropy, micro_f1)
 from gist_tpu_torch.sampler import ClusterSampler
 from gist_tpu_torch.train.common import TrainConfig, make_optimizer
@@ -34,6 +39,7 @@ def train_cluster_gcn(
     use_f1: bool = False,
     normalize: bool = False,
     cache_dir: Optional[str] = None,
+    model=sage,
     eval_every: int = 1,
     eval_cpu: bool = False,
     scan_batches: bool = False,
@@ -43,10 +49,6 @@ def train_cluster_gcn(
 ) -> dict:
     """``init_params`` (a numpy parameter tree) replaces the seeded
     initialisation; ``eval_cpu`` evaluates the full graph on the CPU."""
-    if use_pp:
-        raise NotImplementedError(
-            "the use_pp precomputation waits for the slice that ports the "
-            "plain GraphSAGE stack")
     if scan_batches:
         raise NotImplementedError(
             "scan_batches fuses an epoch into one XLA dispatch; the port "
@@ -55,8 +57,10 @@ def train_cluster_gcn(
     eval_dev = torch.device("cpu") if eval_cpu else dev
     if normalize:
         ds.normalize_features()
-    sampler = ClusterSampler(ds, psize, batch_size, cache_dir=cache_dir,
-                             seed=tc.seed)
+    multitask = ds.labels_multi is not None
+    train_loss = masked_bce_multitask if multitask else masked_cross_entropy
+    sampler = ClusterSampler(ds, psize, batch_size, use_pp=use_pp,
+                             cache_dir=cache_dir, seed=tc.seed)
     full_graph = graph_from_edges(ds.senders, ds.receivers,
                                   ds.n_nodes).to(eval_dev)
     fx = torch.from_numpy(ds.features).to(eval_dev)
@@ -65,8 +69,8 @@ def train_cluster_gcn(
     test_mask = torch.from_numpy(ds.test_mask).to(eval_dev)
 
     if init_params is None:
-        params = sage.init(torch.Generator(device=dev).manual_seed(tc.seed),
-                           model_cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(tc.seed),
+                            model_cfg)
     else:
         params = params_from_jax(init_params, dev)
     leaves = [t.requires_grad_(True)
@@ -79,7 +83,14 @@ def train_cluster_gcn(
             p = {"layers": [{k: v.detach().to(eval_dev)
                              for k, v in layer.items()}
                             for layer in params["layers"]]}
-            logits = sage.apply(p, full_graph, fx, model_cfg)
+            # the eval never takes the use_pp skip (train mode only)
+            logits = model.apply(p, full_graph, fx, model_cfg)
+        if multitask:
+            l = logits.cpu().numpy()
+            return (micro_f1(l, ds.labels_multi, ds.val_mask,
+                             multitask=True),
+                    micro_f1(l, ds.labels_multi, ds.test_mask,
+                             multitask=True))
         if use_f1:
             l = logits.cpu().numpy()
             return (micro_f1(l, ds.labels, ds.val_mask),
@@ -97,10 +108,9 @@ def train_cluster_gcn(
         for batch in prefetch(sampler):
             batch = batch.to(dev)
             opt.zero_grad(set_to_none=True)
-            logits = sage.apply(params, batch.graph, batch.features,
-                                model_cfg, train=True, generator=generator)
-            loss = masked_cross_entropy(logits, batch.labels,
-                                        batch.train_mask)
+            logits = model.apply(params, batch.graph, batch.features,
+                                 model_cfg, train=True, generator=generator)
+            loss = train_loss(logits, batch.labels, batch.train_mask)
             loss.backward()
             opt.step()
             step_losses.append(loss.detach())

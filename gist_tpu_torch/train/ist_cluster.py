@@ -12,8 +12,14 @@ at the ``len(sampler)`` step cadence of the JAX trainer.
 The JAX trainer runs the K subnets side by side over a ``subnet`` mesh
 and gathers their shards with one ``all_gather``; the subnets' steps are
 independent, so the loop over subnets computes the same round.  The mesh
-(NCCL over several cards) and ``lsgd`` wait for the distributed slice of
-the port, ``use_pp`` for the plain GraphSAGE stack.
+(NCCL over several cards) waits for the distributed slice of the port.
+
+``lsgd=True`` is the local-SGD baseline, run the same way as a loop on
+one device: no boundary is split, so each of the K workers trains a
+copy of the full model on its own ``iter_per_site`` batches of the
+round's ``K * iter_per_site``, and the merge averages every leaf.  Its
+``edges_per_sec`` keeps the JAX trainer's formula, which counts the
+round's ``K * iter_per_site`` batches K times.
 
 With ``checkpoint_dir`` every eval round saves the params, the round,
 the states of the partition and dropout generators and the eval
@@ -39,7 +45,7 @@ from gist_tpu_torch.graph import graph_from_edges
 from gist_tpu_torch.ist.partition import boundary_sizes, sample_boundaries
 from gist_tpu_torch.ist.slicing import dispatch, merge, stack
 from gist_tpu_torch.ist.ultrawide import build_local_burst_single
-from gist_tpu_torch.models import sage
+from gist_tpu_torch.models import gat, gcn, sage
 from gist_tpu_torch.models.common import masked_accuracy, micro_f1
 from gist_tpu_torch.sampler import (ClusterBatch, ClusterSampler,
                                     bucket_size, unify_tile_buckets)
@@ -85,6 +91,19 @@ class _RoundCollector:
                 for ids, e in zip(id_sets, edges)]
 
 
+KIND_MODELS = {"sage": sage, "gcn": gcn, "gat": gat}
+
+
+def check_kind(model, kind: str) -> None:
+    """Raise unless ``kind`` names the module of ``model``: the kind
+    picks how the params are sliced and merged."""
+    if kind not in KIND_MODELS:
+        raise ValueError(f"kind must be sage, gcn or gat, not {kind!r}")
+    if model is not KIND_MODELS[kind]:
+        raise ValueError(f"kind {kind!r} slices the params of "
+                         f"models.{kind}, not of {model.__name__}")
+
+
 def train_ist_cluster(
     ds: Dataset,
     model_cfg,
@@ -105,28 +124,24 @@ def train_ist_cluster(
     device="cuda",
     verbose: bool = True,
 ) -> dict:
-    """Train ``model`` (``sage`` with kind "sage", ``gat`` with kind
-    "gat") with GIST on ``device``.  GAT splits the hidden boundaries
-    only; SAGE splits its hidden boundaries and the last one.
-    ``init_params`` (a numpy parameter tree, e.g. the JAX package's
-    ``init`` output) replaces the seeded initialisation."""
-    if mesh is not None or lsgd:
+    """Train ``model`` (``sage`` with kind "sage", ``gcn`` with kind
+    "gcn", ``gat`` with kind "gat") with GIST on ``device``.  GAT splits
+    the hidden boundaries only; SAGE and GCN split their hidden
+    boundaries and the last one; ``lsgd`` splits none.  ``use_pp``
+    hands the model precomputed first-layer features (SAGE with a
+    ``use_pp`` config).  ``init_params`` (a numpy parameter tree, e.g.
+    the JAX package's ``init`` output) replaces the seeded
+    initialisation."""
+    if mesh is not None:
         raise NotImplementedError(
-            "the subnet mesh and the local-SGD baseline wait for the "
-            "distributed slice of the port")
-    if use_pp:
-        raise NotImplementedError(
-            "the use_pp precomputation waits for the slice that ports the "
-            "plain GraphSAGE stack")
-    if kind not in ("sage", "gat"):
-        raise NotImplementedError(f"kind {kind!r} waits for the port of its "
-                                  f"model")
+            "the subnet mesh waits for the distributed slice of the port")
+    check_kind(model, kind)
     dev = resolve_device(device)
     K = tc.num_subnet
     if normalize:
         ds.normalize_features()
-    sampler = ClusterSampler(ds, psize, batch_size, cache_dir=cache_dir,
-                             seed=tc.seed)
+    sampler = ClusterSampler(ds, psize, batch_size, use_pp=use_pp,
+                             cache_dir=cache_dir, seed=tc.seed)
     full_graph = graph_from_edges(ds.senders, ds.receivers,
                                   ds.n_nodes).to(dev)
     fx = torch.from_numpy(ds.features).to(dev)
@@ -139,7 +154,11 @@ def train_ist_cluster(
             torch.Generator(device=dev).manual_seed(tc.seed), model_cfg)
     else:
         full_params = params_from_jax(init_params, dev)
-    if kind == "gat":
+    if lsgd:
+        # dispatch copies the full model, merge averages every leaf
+        sub_cfg = model_cfg
+        sizes = [None] * (len(full_params["layers"]) + 1)
+    elif kind == "gat":
         sub_cfg = model_cfg.sub_config(num_subnet=K)
         sizes = [None] + [model_cfg.n_hidden] * (model_cfg.n_layers - 1) \
             + [None]
@@ -167,7 +186,11 @@ def train_ist_cluster(
     # local epochs: n_epochs // num_subnet
     local_epochs = max(tc.n_epochs // K, 1)
     n_rounds = max(local_epochs * len(sampler) // tc.iter_per_site, 1)
-    collector = _RoundCollector(sampler, tc.iter_per_site, ids_only=True)
+    # lsgd: one collection of K * iter_per_site batches a round (one
+    # padding bucket), worker s taking the s-th iter_per_site of them
+    collector = _RoundCollector(
+        sampler, tc.iter_per_site * K if lsgd else tc.iter_per_site,
+        ids_only=True)
     tables = sampler.tables(dev)
     part_gen = torch.Generator().manual_seed(tc.seed + 1)
     drop_gen = torch.Generator(device=dev).manual_seed(tc.dropout_seed)
@@ -224,9 +247,12 @@ def train_ist_cluster(
                 if tc.lr_schedule else tc.lr
             t0 = time.time()
             trained, round_losses = [], []
+            spr = tc.iter_per_site
             for s in range(K):
+                mine = dev_batches[s * spr:(s + 1) * spr] if lsgd \
+                    else dev_batches
                 sub, rl = burst(dispatch(full_params, bnds, s, kind),
-                                dev_batches, lr, drop_gen, tables)
+                                mine, lr, drop_gen, tables)
                 trained.append(sub)
                 round_losses.append(rl)
             full_params = merge(full_params, bnds, stack(trained), K, kind)

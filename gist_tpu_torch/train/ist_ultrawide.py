@@ -29,7 +29,7 @@ from gist_tpu_torch.ist.partition import boundary_sizes
 from gist_tpu_torch.ist.ultrawide import (build_local_burst_single,
                                           dispatch_host, merge_host,
                                           sample_boundaries_host)
-from gist_tpu_torch.models import sage
+from gist_tpu_torch.models import gat, sage
 from gist_tpu_torch.models.common import micro_f1
 from gist_tpu_torch.sampler import ClusterSampler
 from gist_tpu_torch.train.checkpoint import (generator_state,
@@ -40,7 +40,7 @@ from gist_tpu_torch.train.checkpoint import (generator_state,
                                              save_checkpoint)
 from gist_tpu_torch.train.common import TrainConfig
 from gist_tpu_torch.train.ist_cluster import (_batches_to_device,
-                                              _RoundCollector)
+                                              _RoundCollector, check_kind)
 from gist_tpu_torch.utils import resolve_device
 
 # Above this many activation elements (nodes x hidden width) the eval on
@@ -60,6 +60,8 @@ def train_ist_ultrawide(
     use_f1: bool = False,
     normalize: bool = False,
     cache_dir: Optional[str] = None,
+    model=sage,
+    kind: str = "sage",
     mesh=None,
     eval_on_cpu: bool = True,
     eval_every_rounds: int = 1,
@@ -69,35 +71,42 @@ def train_ist_ultrawide(
     device="cuda",
     verbose: bool = True,
 ) -> dict:
-    """Train the SAGE stack with ultra-wide GIST on ``device``.
+    """Train ``model`` (``sage`` with kind "sage", ``gcn`` with kind
+    "gcn") with ultra-wide GIST on ``device``.
 
     Only the sequential mode is ported (``sequential`` None or True);
-    the subnet mesh waits for the distributed slice, ``use_pp`` for the
-    plain GraphSAGE stack.  ``init_params`` (a numpy parameter tree,
-    e.g. the JAX package's ``sage.init`` output) replaces the seeded
-    initialisation.  The full-graph eval runs on the CPU when
-    ``eval_on_cpu``, through the chunked host forward above
-    ``CHUNKED_EVAL_MIN_ELEMENTS`` activation elements, else on
-    ``device``."""
+    the subnet mesh waits for the distributed slice.  ``use_pp`` hands
+    the model precomputed first-layer features (SAGE with a ``use_pp``
+    config).  ``init_params`` (a numpy parameter tree, e.g. the JAX
+    package's ``init`` output) replaces the seeded initialisation.  The
+    full-graph eval runs on the CPU when ``eval_on_cpu``, for SAGE
+    through the chunked host forward above ``CHUNKED_EVAL_MIN_ELEMENTS``
+    activation elements, else on ``device``.
+
+    GAT has no ultra-wide mode: the JAX trainer builds every sub-config
+    with ``split_input``/``split_output``, which ``GATConfig.sub_config``
+    does not take, so ``model=gat`` raises there too."""
     if mesh is not None or sequential is False:
         raise NotImplementedError(
             "the subnet-mesh mode of the ultra-wide trainer waits for the "
             "distributed slice of the port; use sequential=True")
-    if use_pp:
-        raise NotImplementedError(
-            "the use_pp precomputation waits for the slice that ports the "
-            "plain GraphSAGE stack")
+    if kind not in ("sage", "gcn") or model is gat:
+        raise ValueError(
+            "the ultra-wide trainer trains SAGE or GCN (kind 'sage' or "
+            "'gcn'): the JAX trainer has no GAT path, its GATConfig."
+            "sub_config takes no split_input/split_output")
+    check_kind(model, kind)
     dev = resolve_device(device)
     eval_dev = torch.device("cpu") if eval_on_cpu else dev
     K = tc.num_subnet
     if normalize:
         ds.normalize_features()
-    sampler = ClusterSampler(ds, psize, batch_size, cache_dir=cache_dir,
-                             seed=tc.seed)
+    sampler = ClusterSampler(ds, psize, batch_size, use_pp=use_pp,
+                             cache_dir=cache_dir, seed=tc.seed)
 
     if init_params is None:
         init_params = params_to_numpy(
-            sage.init(torch.Generator().manual_seed(tc.seed), model_cfg))
+            model.init(torch.Generator().manual_seed(tc.seed), model_cfg))
     # full-width params: host numpy, updated in place by merge_host
     full_params = {"layers": [
         {k: np.array(v, dtype=np.float32, copy=True) for k, v in l.items()}
@@ -107,10 +116,11 @@ def train_ist_ultrawide(
     sizes = boundary_sizes(model_cfg.in_feats, model_cfg.n_hidden,
                            model_cfg.n_layers, split_input=False,
                            split_output=True)
-    burst_fn = build_local_burst_single(sage, sub_cfg,
+    burst_fn = build_local_burst_single(model, sub_cfg,
                                         weight_decay=tc.weight_decay)
 
-    chunked_eval = (eval_on_cpu and ds.n_nodes * model_cfg.n_hidden
+    chunked_eval = (kind == "sage" and eval_on_cpu
+                    and ds.n_nodes * model_cfg.n_hidden
                     > CHUNKED_EVAL_MIN_ELEMENTS)
     eval_data = {}
 
@@ -124,9 +134,9 @@ def train_ist_ultrawide(
                     ds.senders, ds.receivers, ds.n_nodes).to(eval_dev)
                 eval_data["x"] = torch.from_numpy(ds.features).to(eval_dev)
             with torch.no_grad():
-                logits = sage.apply(params_from_jax(params_np, eval_dev),
-                                    eval_data["g"], eval_data["x"],
-                                    model_cfg)
+                logits = model.apply(params_from_jax(params_np, eval_dev),
+                                     eval_data["g"], eval_data["x"],
+                                     model_cfg)
             l = logits.cpu().numpy()
         if use_f1:
             return (micro_f1(l, ds.labels, ds.val_mask),
@@ -227,7 +237,7 @@ def train_ist_ultrawide(
     for rnd in range(start_round, n_rounds):
         t0 = time.time()
         bnds = sample_boundaries_host(host_rng, sizes, K)
-        shards_np = dispatch_host(full_params, bnds, K)
+        shards_np = dispatch_host(full_params, bnds, K, kind)
         t1 = time.time()
         trained_list, loss_list, t_prep = [], [], 0.0
         for s in range(K):
@@ -247,7 +257,7 @@ def train_ist_ultrawide(
             {k: np.stack([t["layers"][i][k] for t in trained_list])
              for k in layer} for i, layer in enumerate(full_params["layers"])]}
         t3 = time.time()
-        full_params = merge_host(full_params, bnds, trained, K)
+        full_params = merge_host(full_params, bnds, trained, K, kind)
         if rnd + 1 < n_rounds:
             batches = next_batches
         total_time += time.time() - t0

@@ -29,6 +29,16 @@ CASES = {
                                             "4", "--batch-size", "2"]),
     "train_gcn": ("train_gcn", ["--dataset", "synth-tiny", "--n-epochs",
                                 "6", "--n-hidden", "16"]),
+    "train_ist": ("train_ist", MODEL + ["--n-epochs", "6"] + IST),
+    "train_ist_fused": ("train_ist", MODEL + ["--n-epochs", "6", "--fused"]
+                        + IST),
+    "ist_distrib_lsgd": ("ist_distrib", TINY + IST + ["--lsgd"]),
+    "ist_distrib_use_pp": ("ist_distrib", TINY + IST + ["--use-pp"]),
+    "ist_distrib_ultra_wide_use_pp": ("ist_distrib", TINY + IST
+                                      + ["--ultra-wide", "--use-pp"]),
+    "cluster_gcn_use_pp": ("cluster_gcn", MODEL + [
+        "--n-epochs", "1", "--psize", "4", "--batch-size", "2",
+        "--use-pp"]),
 }
 
 
@@ -110,7 +120,7 @@ def test_infer_matches_jax_keys_and_models(tmp_path):
 
 
 def test_train_gcn_profile_and_unported_flags(tmp_path):
-    from gist_tpu_torch.cli import cluster_gcn, ist_distrib, train_gcn
+    from gist_tpu_torch.cli import cluster_gcn, train_gcn
     prof = tmp_path / "prof"
     train_gcn.main(["--dataset", "synth-tiny", "--n-epochs", "4",
                     "--profile-dir", str(prof), "--device", "cpu"])
@@ -118,15 +128,57 @@ def test_train_gcn_profile_and_unported_flags(tmp_path):
     with pytest.raises(NotImplementedError):
         train_gcn.main(["--dataset", "synth-tiny", "--scan-epochs", "2",
                         "--device", "cpu"])
-    for flags in (["--use-pp"], ["--lsgd"], ["--use-pp", "--ultra-wide"]):
-        with pytest.raises(NotImplementedError):
-            ist_distrib.main(TINY + IST + flags + ["--device", "cpu"])
     with pytest.raises(NotImplementedError):
         cluster_gcn.main(TINY + ["--scan-batches", "--device", "cpu"])
 
 
+def test_infer_multitask_matches_jax(tmp_path, monkeypatch):
+    """On a multitask dataset (multi-hot labels, here a thresholded
+    projection of synth-tiny's features) both infers score the same
+    params with the threshold micro-F1."""
+    import jax
+
+    import gist_tpu.data as jdata
+    from gist_tpu.cli import infer as jinfer
+    from gist_tpu.models import sage as jsage
+    from gist_tpu.train.checkpoint import save_checkpoint as jsave
+
+    import gist_tpu_torch.data as tdata
+    from gist_tpu_torch.cli import infer
+    from gist_tpu_torch.models.common import micro_f1
+    from gist_tpu_torch.train.checkpoint import save_checkpoint
+
+    def multitask(load):
+        def wrapped(name, *a, **kw):
+            ds = load(name)
+            w = np.random.default_rng(1).standard_normal((ds.in_feats, 6))
+            ds.labels_multi = (ds.features @ w > 0).astype(np.float32)
+            ds.labels = ds.labels_multi.argmax(axis=1).astype(np.int32)
+            ds.n_classes = 6
+            return ds
+        return wrapped
+    monkeypatch.setattr(jdata, "load_dataset",
+                        multitask(jdata.load_dataset))
+    monkeypatch.setattr(tdata, "load_dataset",
+                        multitask(tdata.load_dataset))
+    params = jsage.init(jax.random.PRNGKey(0), jsage.SAGEConfig(32, 16, 6))
+    jck, tck = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jsave(f"{jck}/round_0", {"params": params, "round": 0})
+    save_checkpoint(f"{tck}/round_0", {
+        "params": jax.tree.map(np.asarray, params), "round": 0})
+    logits = str(tmp_path / "logits.npy")
+    want = jinfer.main(MODEL + ["--checkpoint-dir", jck])
+    got = infer.main(MODEL + ["--checkpoint-dir", tck, "--device", "cpu",
+                              "--logits-out", logits])
+    assert got["val"] == want["val"] and got["test"] == want["test"]
+    ds = tdata.load_dataset("synth-tiny")
+    assert got["val"] == micro_f1(np.load(logits), ds.labels_multi,
+                                  ds.val_mask, multitask=True)
+
+
 @pytest.mark.parametrize("name", ["ist_distrib", "gat_distrib",
-                                  "cluster_gcn", "train_gcn", "infer"])
+                                  "cluster_gcn", "train_gcn", "infer",
+                                  "train_ist"])
 def test_cli_defaults_to_the_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     main = importlib.import_module(f"gist_tpu_torch.cli.{name}").main

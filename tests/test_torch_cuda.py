@@ -951,3 +951,69 @@ def test_ultrawide_resume_on_card(cuda, tmp_path, monkeypatch):
     resumed = run(8, str(tmp_path))
     assert cut["losses"] + resumed["losses"] == full["losses"]
     assert cut["val_accs"] + resumed["val_accs"] == full["val_accs"]
+
+
+def test_cluster_gcn_use_pp_through_kernel(cuda, monkeypatch):
+    """A ``use_pp`` Cluster-GCN epoch on the card: every batch carries a
+    layout, the first layer skips its aggregation, so a SAGE stack of L
+    weight layers launches K1 2L - 2 times a step (L - 1 forward, L - 1
+    transpose)."""
+    from gist_tpu_torch import sampler
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.models.sage import SAGEConfig
+    from gist_tpu_torch.train.cluster import train_cluster_gcn
+    from gist_tpu_torch.train.common import TrainConfig
+    monkeypatch.setattr(sampler, "TILES_MIN_EDGES", 0)
+    ds = load_dataset("synth-tiny")
+    cfg = SAGEConfig(ds.in_feats, 16, ds.n_classes, n_layers=2, dropout=0.2,
+                     use_pp=True)
+    K.launches = 0
+    r = train_cluster_gcn(ds, cfg, TrainConfig(n_epochs=1), psize=4,
+                          batch_size=2, use_pp=True, verbose=False,
+                          device="cuda")
+    torch.cuda.synchronize()
+    n_layers = cfg.n_layers + 1
+    assert K.launches == (2 * n_layers - 2) * 2   # 2 batches an epoch
+    assert np.isfinite(r["losses"]).all()
+
+
+def test_lsgd_round_through_kernel_matches_plain(cuda, tmp_path,
+                                                 monkeypatch):
+    """Two local-SGD rounds (K=2 workers, their own batches, every leaf
+    averaged) through K1 on the card and through its plain walk on the
+    CPU, from the same initial parameters, dropout 0: the merged
+    parameters agree norm-wise per leaf within 1e-3 (ReLU models,
+    PERF.md §2), the losses within 1e-3 relative."""
+    from gist_tpu_torch import sampler
+    from gist_tpu_torch.convert import params_to_numpy
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.models import sage
+    from gist_tpu_torch.ops import spmm
+    from gist_tpu_torch.train.checkpoint import (latest_round_dir,
+                                                 load_checkpoint)
+    from gist_tpu_torch.train.common import TrainConfig
+    from gist_tpu_torch.train.ist_cluster import train_ist_cluster
+    monkeypatch.setattr(sampler, "TILES_MIN_EDGES", 0)
+    cfg = sage.SAGEConfig(32, 16, 4, n_layers=2, dropout=0.0)
+    init = params_to_numpy(sage.init(torch.Generator().manual_seed(0), cfg))
+    tc = TrainConfig(n_epochs=4, num_subnet=2, iter_per_site=2)
+    out = {}
+    for device, backend in (("cuda", "auto"), ("cpu", "dedup")):
+        monkeypatch.setattr(spmm, "_DEFAULT_BACKEND", backend)
+        ck = str(tmp_path / device)
+        K.launches = 0
+        r = train_ist_cluster(load_dataset("synth-tiny"), cfg, tc, psize=4,
+                              batch_size=2, lsgd=True, init_params=init,
+                              checkpoint_dir=ck, verbose=False,
+                              device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            # 2 rounds x 2 workers x 2 steps, 5 launches a step
+            assert K.launches == 2 * 2 * 2 * 5
+        out[device] = (r, load_checkpoint(latest_round_dir(ck))["params"])
+    (rc, pc), (rp, pp) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(rc["losses"], rp["losses"], rtol=1e-3)
+    for lc, lp in zip(pc["layers"], pp["layers"]):
+        for k in lc:
+            a, b = lc[k].float().cpu(), lp[k].float()
+            assert float((a - b).norm() / b.norm()) <= 1e-3, k

@@ -1,5 +1,7 @@
 """The port's ultra-wide IST path against the JAX package: host
-dispatch/merge, the sequential burst and the two trainers.
+dispatch/merge, the sequential burst and the two trainers (the
+ultra-wide one for SAGE, GCN and ``use_pp``; Cluster-GCN for SAGE,
+``use_pp``, multi-hot labels and GCN).
 
 Burst and trainer losses agree to rtol 1e-4 (atol 1e-5 on parameters):
 Adam's m/sqrt(v) amplifies last-bit summation differences over steps."""
@@ -13,6 +15,7 @@ import torch
 from gist_tpu.data.container import Dataset as JDataset
 from gist_tpu.data.synthetic import synthetic_dataset as jax_synth
 from gist_tpu.ist import ultrawide as JU
+from gist_tpu.models import gcn as jgcn
 from gist_tpu.models import sage as jsage
 from gist_tpu.sampler import ClusterSampler as JSampler
 from gist_tpu.train.cluster import train_cluster_gcn as j_cluster
@@ -26,6 +29,8 @@ from gist_tpu_torch.data import load_dataset
 from gist_tpu_torch.data.container import Dataset as TDataset
 from gist_tpu_torch.ist import ultrawide as TU
 from gist_tpu_torch.ist.partition import VIRTUAL_IDX, boundary_sizes
+from gist_tpu_torch.models import gat as tgat
+from gist_tpu_torch.models import gcn as tgcn
 from gist_tpu_torch.models import sage as tsage
 from gist_tpu_torch.ops import spmm as TS
 from gist_tpu_torch.sampler import ClusterSampler as TSampler
@@ -126,39 +131,90 @@ def test_burst_parity(cora_like, monkeypatch):
                  atol=1e-5)
 
 
-def _tiny_cfgs():
+def _tiny_cfgs(use_pp=False, model="sage"):
     ds = load_dataset("synth-tiny")
     args = (ds.in_feats, 16, ds.n_classes)
-    return (jsage.SAGEConfig(*args, n_layers=2, dropout=0.0),
-            tsage.SAGEConfig(*args, n_layers=2, dropout=0.0))
+    if model == "gcn":
+        return (jgcn.GCNConfig(*args, n_layers=2, dropout=0.0),
+                tgcn.GCNConfig(*args, n_layers=2, dropout=0.0))
+    return (jsage.SAGEConfig(*args, n_layers=2, dropout=0.0, use_pp=use_pp),
+            tsage.SAGEConfig(*args, n_layers=2, dropout=0.0, use_pp=use_pp))
 
 
 def test_ultrawide_trainer_parity():
-    jcfg, tcfg = _tiny_cfgs()
+    _ultrawide_parity("sage", False)
+
+
+@pytest.mark.parametrize("model,use_pp", [("sage", True), ("gcn", False)])
+def test_ultrawide_trainer_variants_parity(model, use_pp):
+    """``model=gcn, kind="gcn"`` and SAGE with ``use_pp``."""
+    _ultrawide_parity(model, use_pp)
+
+
+def _ultrawide_parity(model, use_pp):
+    jcfg, tcfg = _tiny_cfgs(use_pp, model)
+    jm, tm = (jgcn, tgcn) if model == "gcn" else (jsage, tsage)
     kw = dict(lr=1e-2, weight_decay=5e-4, n_epochs=4, num_subnet=2,
               iter_per_site=2)
-    init = _np_tree(jsage.init(jax.random.PRNGKey(0), jcfg))
+    init = _np_tree(jm.init(jax.random.PRNGKey(0), jcfg))
     common = dict(psize=4, batch_size=2, use_f1=True, normalize=True,
-                  verbose=False)
+                  use_pp=use_pp, verbose=False)
     rj = j_uw(jax_synth("synth-tiny"), jcfg, JTC(**kw), sequential=True,
-              **common)
+              model=jm, kind=model, **common)
     rt = t_uw(load_dataset("synth-tiny"), tcfg, TTC(**kw), init_params=init,
-              device="cpu", **common)
+              model=tm, kind=model, device="cpu", **common)
     assert len(rj["losses"]) == len(rt["losses"]) == 2
     np.testing.assert_allclose(rt["losses"], rj["losses"], rtol=1e-4)
     assert rt["val_accs"][-1] == rj["val_accs"][-1]
 
 
+def _multi_hot(ds, c=5):
+    """Learnable multi-hot labels: a random projection of the features
+    thresholded at 0 (as the JAX package's multitask test makes them)."""
+    w = np.random.default_rng(1).standard_normal((ds.in_feats, c))
+    ds.labels_multi = (ds.features @ w > 0).astype(np.float32)
+    ds.labels = ds.labels_multi.argmax(axis=1).astype(np.int32)
+    ds.n_classes = c
+    return ds
+
+
 def test_cluster_gcn_trainer_parity():
-    jcfg, tcfg = _tiny_cfgs()
+    _cluster_parity(False, False)
+
+
+@pytest.mark.parametrize("use_pp,multitask,model", [
+    (True, False, "sage"), (False, True, "sage"), (True, True, "sage"),
+    (False, False, "gcn"), (False, True, "gcn")])
+def test_cluster_gcn_variants_parity(use_pp, multitask, model):
+    """Cluster-GCN with ``use_pp``, on multi-hot labels (sigmoid BCE,
+    threshold micro-F1) and with ``model=gcn``."""
+    _cluster_parity(use_pp, multitask, model)
+
+
+def _cluster_parity(use_pp, multitask, model="sage"):
+    dsj, dst = jax_synth("synth-tiny"), load_dataset("synth-tiny")
+    if multitask:
+        dsj, dst = _multi_hot(dsj), _multi_hot(dst)
+    args = (dst.in_feats, 16, dst.n_classes)
+    if model == "gcn":
+        jm, tm = jgcn, tgcn
+        jcfg = jgcn.GCNConfig(*args, n_layers=2, dropout=0.0)
+        tcfg = tgcn.GCNConfig(*args, n_layers=2, dropout=0.0)
+    else:
+        jm, tm = jsage, tsage
+        jcfg = jsage.SAGEConfig(*args, n_layers=2, dropout=0.0,
+                                use_pp=use_pp)
+        tcfg = tsage.SAGEConfig(*args, n_layers=2, dropout=0.0,
+                                use_pp=use_pp)
     kw = dict(lr=1e-2, weight_decay=5e-4, n_epochs=2)
-    init = _np_tree(jsage.init(jax.random.PRNGKey(0), jcfg))
-    common = dict(psize=4, batch_size=2, verbose=False)
-    rj = j_cluster(jax_synth("synth-tiny"), jcfg, JTC(**kw), **common)
-    rt = t_cluster(load_dataset("synth-tiny"), tcfg, TTC(**kw),
-                   init_params=init, device="cpu", **common)
+    init = _np_tree(jm.init(jax.random.PRNGKey(0), jcfg))
+    common = dict(psize=4, batch_size=2, use_pp=use_pp, verbose=False)
+    rj = j_cluster(dsj, jcfg, JTC(**kw), model=jm, **common)
+    rt = t_cluster(dst, tcfg, TTC(**kw), init_params=init, model=tm,
+                   device="cpu", **common)
     np.testing.assert_allclose(rt["losses"], rj["losses"], rtol=1e-4)
     assert rt["val_accs"][-1] == rj["val_accs"][-1]
+    assert rt["test_accs"][-1] == rj["test_accs"][-1]
 
 
 def test_unported_modes_raise():
@@ -166,8 +222,24 @@ def test_unported_modes_raise():
     ds = load_dataset("synth-tiny")
     with pytest.raises(NotImplementedError, match="distributed"):
         t_uw(ds, tcfg, TTC(num_subnet=2), sequential=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="use_pp"):
-        t_uw(ds, tcfg, TTC(num_subnet=2), use_pp=True, device="cpu")
+    # the JAX trainer has no GAT path: neither has the port
+    gcfg = tgat.GATConfig(ds.in_feats, 8, ds.n_classes)
+    for kw in (dict(model=tgat, kind="gat"), dict(model=tgat)):
+        with pytest.raises(ValueError, match="GAT"):
+            t_uw(ds, gcfg, TTC(num_subnet=2), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("trainer", ["ultrawide", "ist_cluster"])
+def test_kind_must_match_model(trainer):
+    """The kind picks how the params are sliced: a model of another kind
+    raises instead of being sliced as the kind's."""
+    from gist_tpu_torch.train.ist_cluster import train_ist_cluster
+    fn = t_uw if trainer == "ultrawide" else train_ist_cluster
+    ds = load_dataset("synth-tiny")
+    cfg = tgcn.GCNConfig(ds.in_feats, 8, ds.n_classes)
+    for kw in (dict(model=tgcn), dict(model=tsage, kind="gcn")):
+        with pytest.raises(ValueError, match="slices the params"):
+            fn(ds, cfg, TTC(num_subnet=2), device="cpu", **kw)
 
 
 def test_train_common_matches(tmp_path):

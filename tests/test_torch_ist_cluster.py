@@ -1,7 +1,8 @@
 """The port's IST cluster path against the JAX package: boundary
 partitions, device dispatch/merge for gcn, sage and gat, the host
-dispatch/merge of gat, and ``train_ist_cluster`` (kind gat and sage)
-against the JAX trainer on the 8-device CPU mesh.
+dispatch/merge of gat, and ``train_ist_cluster`` (kinds gat, sage and
+gcn, SAGE with ``use_pp``, and the local-SGD baseline) against the JAX
+trainer on the 8-device CPU mesh.
 
 ``jax.random`` and torch draw different partitions, so the trainer tests
 inject the JAX trainer's per-round boundaries into the port.  The port
@@ -20,6 +21,7 @@ from gist_tpu.ist import partition as JPart
 from gist_tpu.ist import slicing as JSl
 from gist_tpu.ist import ultrawide as JU
 from gist_tpu.models import gat as jgat
+from gist_tpu.models import gcn as jgcn
 from gist_tpu.models import sage as jsage
 from gist_tpu.train.common import TrainConfig as JTC
 from gist_tpu.train.ist_cluster import train_ist_cluster as j_train
@@ -30,6 +32,7 @@ from gist_tpu_torch.ist import partition as TPart
 from gist_tpu_torch.ist import slicing as TSl
 from gist_tpu_torch.ist import ultrawide as TU
 from gist_tpu_torch.models import gat as tgat
+from gist_tpu_torch.models import gcn as tgcn
 from gist_tpu_torch.models import sage as tsage
 from gist_tpu_torch.ops import gat_dedup
 from gist_tpu_torch.ops import spmm as TS
@@ -137,7 +140,7 @@ def test_sample_boundaries_partition():
     assert sorted(bnds[2].flatten().tolist()) == list(range(12))
 
 
-def _run_both(kind, monkeypatch):
+def _run_both(kind, monkeypatch, lsgd=False, use_pp=False):
     k, hidden = 2, 16
     kw = dict(lr=1e-2, weight_decay=5e-4, n_epochs=4, num_subnet=k,
               iter_per_site=2)
@@ -150,12 +153,22 @@ def _run_both(kind, monkeypatch):
         sizes = [None, hidden, None]
     else:
         args = (ds_t.in_feats, hidden, ds_t.n_classes)
-        jcfg = jsage.SAGEConfig(*args, n_layers=2, dropout=0.0)
-        tcfg = tsage.SAGEConfig(*args, n_layers=2, dropout=0.0)
-        jm, tm = jsage, tsage
+        if kind == "gcn":
+            jcfg = jgcn.GCNConfig(*args, n_layers=2, dropout=0.0)
+            tcfg = tgcn.GCNConfig(*args, n_layers=2, dropout=0.0)
+            jm, tm = jgcn, tgcn
+        else:
+            jcfg = jsage.SAGEConfig(*args, n_layers=2, dropout=0.0,
+                                    use_pp=use_pp)
+            tcfg = tsage.SAGEConfig(*args, n_layers=2, dropout=0.0,
+                                    use_pp=use_pp)
+            jm, tm = jsage, tsage
         sizes = JPart.boundary_sizes(ds_t.in_feats, hidden, 2,
                                      split_input=False, split_output=True)
-    common = dict(psize=4, batch_size=2, normalize=True, verbose=False)
+    if lsgd:
+        sizes = [None] * (len(sizes) + 1)
+    common = dict(psize=4, batch_size=2, normalize=True, verbose=False,
+                  lsgd=lsgd, use_pp=use_pp)
     rj = j_train(jax_synth("synth-tiny"), jcfg, JTC(**kw), model=jm,
                  kind=kind, **common)
     # the JAX trainer's boundaries: one split of its partition key a round
@@ -182,12 +195,12 @@ def _run_both(kind, monkeypatch):
     return rj, rt, ds_t, walks
 
 
-@pytest.mark.parametrize("kind", ["gat", "sage"])
+@pytest.mark.parametrize("kind", ["gat", "sage", "gcn"])
 def test_train_ist_cluster_matches_jax(kind, monkeypatch):
     rj, rt, ds, walks = _run_both(kind, monkeypatch)
     # 2 rounds x 2 subnets x 2 steps, each through the plain K4-K6 walks:
     # K4 once per layer, K5 and K6 once per head (2 + 1)
-    assert walks == ({} if kind == "sage" else {
+    assert walks == ({} if kind != "gat" else {
         "gat_fwd_reference": 16, "gat_bwd_b1_reference": 24,
         "gat_bwd_b2_reference": 24})
     assert len(rj["losses"]) == len(rt["losses"]) == 2
@@ -206,13 +219,33 @@ def test_train_ist_cluster_matches_jax(kind, monkeypatch):
             gat_dedup.launches_b2) == (0, 0, 0)
 
 
+@pytest.mark.parametrize("kind,lsgd,use_pp", [("sage", True, False),
+                                              ("gcn", True, False),
+                                              ("sage", False, True),
+                                              ("sage", True, True)])
+def test_train_ist_cluster_lsgd_and_use_pp_match_jax(kind, lsgd, use_pp,
+                                                     monkeypatch):
+    """The local-SGD baseline (each worker its own batches of a round,
+    every leaf averaged) and the ``use_pp`` features, against the JAX
+    trainer; ``edges_per_sec`` keeps the JAX formula (the round's
+    K * iter_per_site batches counted K times)."""
+    rj, rt, ds, _ = _run_both(kind, monkeypatch, lsgd=lsgd, use_pp=use_pp)
+    assert len(rj["losses"]) == len(rt["losses"]) == 2
+    np.testing.assert_allclose(rt["losses"], rj["losses"], rtol=1e-4)
+    np.testing.assert_allclose(rt["val_accs"], rj["val_accs"],
+                               atol=1.0 / int(ds.val_mask.sum()) + 1e-9)
+    per_round = 4 if lsgd else 2
+    assert len(rt["edges_per_batch"]) == 2 * per_round
+    assert rt["edges_per_sec"] == pytest.approx(
+        sum(rt["edges_per_batch"]) * 2 / rt["train_time"])
+
+
 def test_train_ist_cluster_unported_modes_raise():
     ds = load_dataset("synth-tiny")
     cfg = tgat.GATConfig(ds.in_feats, 8, ds.n_classes)
-    for kw, match in ((dict(mesh=object()), "distributed"),
-                      (dict(lsgd=True), "distributed"),
-                      (dict(use_pp=True), "use_pp"),
-                      (dict(kind="gcn"), "gcn")):
-        with pytest.raises(NotImplementedError, match=match):
-            TIC.train_ist_cluster(ds, cfg, TTC(num_subnet=2), model=tgat,
-                                  **{"kind": "gat", **kw}, device="cpu")
+    with pytest.raises(NotImplementedError, match="distributed"):
+        TIC.train_ist_cluster(ds, cfg, TTC(num_subnet=2), model=tgat,
+                              kind="gat", mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="kind"):
+        TIC.train_ist_cluster(ds, cfg, TTC(num_subnet=2), model=tgat,
+                              kind="gin", device="cpu")

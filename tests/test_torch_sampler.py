@@ -133,3 +133,41 @@ def test_round_collector_pads_identical(datasets):
         for a, b in zip(j_unify(ja), t_unify(ta)):
             _assert_layouts_equal(a.graph.dedup, b.graph.dedup)
             _assert_layouts_equal(a.graph.dedup_t, b.graph.dedup_t)
+
+
+def test_use_pp_features_identical(datasets):
+    """``use_pp``: ``[X || (A X) / deg]`` over the train subgraph, equal
+    arrays in the sampler, its batches and its tables."""
+    jd, td = datasets
+    js = JSampler(jd, 8, 2, seed=3, tiles=False, use_pp=True)
+    ts = TSampler(td, 8, 2, seed=3, tiles=False, use_pp=True)
+    assert ts.features.shape[1] == 2 * td.in_feats
+    _eq(js.features, ts.features, "use_pp features")
+    for a, b in zip(js, ts):
+        _assert_batches_equal(a, b)
+    for x, y in zip(js.tables(), ts.tables()):
+        _eq(x, y, "tables")
+
+
+def test_multi_hot_labels_identical(datasets):
+    """Multitask datasets: (N, C) float32 labels in batches (zero rows
+    on padding) and tables, equal to the JAX sampler's."""
+    from dataclasses import replace
+    jd, td = datasets
+    w = np.random.default_rng(1).standard_normal((jd.in_feats, 5))
+    multi = (jd.features @ w > 0).astype(np.float32)
+    jd, td = replace(jd, labels_multi=multi), replace(td, labels_multi=multi)
+    js, ts = _samplers((jd, td), tiles=False)
+    assert ts.labels.shape == (ts.n_nodes, 5)
+    n = 0
+    for a, b in zip(js, ts):
+        _assert_batches_equal(a, b)
+        assert b.labels.shape == (b.graph.n_nodes, 5)
+        assert not b.labels[b.n_real_nodes:].any()
+        n += 1
+    assert n == len(ts)
+    ids = next(ts.iter_node_ids())
+    _assert_batches_equal(js.make_batch(ids, ids_only=True),
+                          ts.make_batch(ids, ids_only=True))
+    for x, y in zip(js.tables(), ts.tables()):
+        _eq(x, y, "tables")
