@@ -94,6 +94,34 @@ raising on failure:
     K=2, 2 rounds on those clusters (K1 6 a step), and
     ``train_ist_ultrawide(model=gcn, kind="gcn")``, GCN h2048, 4 hidden
     layers, K=8, 1 round on the SAGE main path's clusters (K1 9 a step).
+23. scan_batches (run after phase 16, as are 24 and 25: the phases
+    that replay CUDA graphs follow every phase that reads kernel times
+    from a ``torch.profiler`` trace, since traces taken after graphs had
+    run were seen to miss kernel events): ``train_cluster_gcn`` with SAGE
+    h256, 2 layers, dropout 0 on phase 6's clusters for 3 epochs, the
+    per-batch loop against ``scan_batches=True`` (each epoch's 5 steps
+    one CUDA-graph replay): losses within 1e-5 relative, K1 25 launches
+    in every replay by the profiler, capture seconds, steady epoch
+    seconds and device busy and idle share of an epoch of each; then K1
+    captured alone on a batch of the stacked epoch and replayed against
+    its plain walk;
+24. sweep: ``python -m gist_tpu_torch.sweeps.run --sweep
+    reddit-baseline --limit 1 --device cuda`` as a function, into
+    ``scratch_chip/`` (40 epochs through ``scan_batches``); every record
+    must read ``"status": "ok"``;
+25. scan_epochs_v1: ``train_full_graph`` 6 epochs,
+    the per-epoch loop against ``scan_epochs=3`` (an epoch, train and
+    eval, one replay), (a) GCN h256 through K3 and (b) GAT h512 through
+    K7-K9 on the v1 graph: losses within 1e-4 relative, accuracies
+    equal, launches in every replay by the profiler equal to the loop's
+    per epoch; then K3 and the chain K7 -> K8 -> K9 captured alone and
+    replayed against their plain walks;
+26. scan_epochs_chunked (run after phase 13): case (c), GCN h256 on the
+    full-scale chunked graph (K1 4 C_f + 2 C_t a replay), the same
+    checks, and K1 per chunk replayed against its plain walk.
+
+Replayed outputs are held against the plain versions at 1e-5 relative to
+the plain result's max, after the outputs were overwritten with NaN.
 
 Kernel and library times: ``ms`` is device time per call, one CUDA
 event pair around back-to-back calls queued ahead of the card
@@ -106,8 +134,10 @@ Then the kernel summary line, and as the last line
 without the package beside it.
 """
 
+import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2311,6 +2341,487 @@ def phase_v1_main_path(torch, ds, graph, layout_build_s):
     return launches
 
 
+# --- CUDA-graph capture: one dispatch an epoch --------------------------------
+
+# the sleep kernel that opens a replay's trace: ~0.1 ms at ~2 GHz
+SLEEP_CYCLES = 200_000
+REPLAY_COUNT_NOTE = (
+    "a kernel captured alone: its outputs, set to NaN before the replay, "
+    "read its plain version's values after it, so it ran in the replay; "
+    "the trace's count of it is printed but not held (traces of a "
+    "one-kernel replay were seen to miss that kernel's event)")
+
+
+@contextlib.contextmanager
+def _replay_traces(torch):
+    """Inside, every ``Captured.replay`` of the port runs under a
+    ``torch.profiler`` trace of its own (the copy of its new inputs, the
+    replay and a synchronise);
+    yields the list of traces, one a replay.  A replay calls no Python,
+    so these traces are how a run counts the kernels a replay runs."""
+    from gist_tpu_torch.train import capture
+    traces = []
+    real = capture.Captured.replay
+
+    def replay(self, values=None):
+        def lead_and_replay():
+            # the trace opens on a short sleep kernel: events of a
+            # replay's start were seen missing from its trace without it
+            torch.cuda._sleep(SLEEP_CYCLES)
+            real(self, values)
+        traces.append(_profiled(torch, lead_and_replay)[1])
+    capture.Captured.replay = replay
+    try:
+        yield traces
+    finally:
+        capture.Captured.replay = real
+
+
+@contextlib.contextmanager
+def _epoch_traces(torch):
+    """Inside, each epoch of ``train_cluster_gcn``'s per-batch loop (its
+    ``prefetch`` stream of batches, from the first step enqueued to the
+    last one done) runs under a ``torch.profiler`` trace of its own;
+    yields the list of traces, one an epoch (eval excluded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gist_tpu_torch.train import cluster
+    traces = []
+    real = cluster.prefetch
+
+    def traced(iterable, *a, **kw):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            yield from real(iterable, *a, **kw)
+            torch.cuda.synchronize()
+        traces.append(prof)
+    cluster.prefetch = traced
+    try:
+        yield traces
+    finally:
+        cluster.prefetch = real
+
+
+def _count(prof, name):
+    """Device events of a trace whose names hold ``name``."""
+    return sum(1 for e in _device_events(prof) if name in e.name)
+
+
+def _counts_match(counts, want, n):
+    """True when ``n`` replays' kernel counts from their traces show
+    ``want`` launches a replay: the largest count equals it and every
+    replay shows the kernel.  A trace can miss events (one replay's
+    trace read 33 of 36), so a count under ``want`` in some replay alone
+    does not fail; the counter at capture (the warm-up's launches and
+    the captured ones) holds the exact number of captured launches."""
+    return len(counts) == n and max(counts) == want and min(counts) > 0
+
+
+def _busy(prof):
+    """(busy ms, span ms) of a trace's device events, the leading sleep
+    kernel (``spin_kernel``) left out."""
+    ev = [e for e in _device_events(prof) if "spin_kernel" not in e.name]
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    span = (max(e.time_range.end for e in ev)
+            - min(e.time_range.start for e in ev)) / 1e3 if ev else 0.0
+    return busy, span
+
+
+def _unit_device(traces, epoch_s):
+    """Device busy and span per trace (one an epoch or a replay), the
+    idle share inside the span and the idle share of the epoch's wall
+    (``epoch_s``, the trainer's steady epoch seconds)."""
+    busy = statistics.median(_busy(p)[0] for p in traces)
+    span = statistics.median(_busy(p)[1] for p in traces)
+    return {"device_busy_ms": busy, "device_span_ms": span,
+            "idle_share_of_span": 1 - busy / span if span else None,
+            "epoch_s": epoch_s,
+            "idle_share_of_epoch": 1 - busy / 1e3 / epoch_s
+            if epoch_s else None}
+
+
+def _replay_check(torch, launch, plain, tol=1e-5):
+    """Capture ``launch()`` (a tuple of output tensors) into a CUDA graph
+    with the port's capture, overwrite its outputs with NaN, replay it
+    once under ``torch.profiler``, and hold each output against
+    ``plain(outputs)``, the plain versions' results on the same inputs
+    (given the replay's outputs, for the inputs a chain of kernels hands
+    on).  An output that reads its plain value after the replay was
+    written by the replay.  Returns (the largest error relative to each
+    plain result's max, the replay's trace); raises above ``tol``."""
+    from gist_tpu_torch.train.capture import Captured
+    held = {}
+    run = Captured(lambda: held.update(out=launch()))
+    for t in held["out"]:
+        t.fill_(float("nan"))
+    torch.cuda.synchronize()
+
+    _, prof = _profiled(torch, run.replay)
+    got = held["out"]
+    want = plain(got)
+    err = 0.0
+    for a, b in zip(got, want):
+        if not torch.isfinite(a.float()).all():
+            raise RuntimeError("a replayed output is not finite")
+        err = max(err, float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max().clamp(min=1e-30)))
+    if not err <= tol:
+        raise RuntimeError(f"a replayed output is {err} off its plain "
+                           f"version (tol {tol})")
+    return err, prof
+
+
+def phase_scan_batches(torch, ds, sampler):
+    """``train_cluster_gcn`` with SAGE h256, 2 layers, dropout 0 on the
+    main path's clusters (psize 50, batch 10, K1 on every batch, 5
+    launches a step), 3 epochs, per-batch loop against
+    ``scan_batches=True``: losses within 1e-5 relative (K1 sums in a
+    fixed order); K1 in every replay 5 steps x 5 from the profiler, and
+    the counter at capture (warm-up step and captured steps); capture
+    seconds, steady epoch seconds and device busy and idle share of one
+    epoch of each (a second run of each under the profiler: the loop's
+    epochs, the scan's replays).  Then K1 captured alone on one batch of
+    the stacked epoch and replayed, against its plain walk (1e-5
+    relative), at F=100 (the features) and F=256 (the hidden width).
+    Returns (K1's launches in the scanned run, the replay rows)."""
+    import dataclasses
+
+    import numpy as np
+
+    from gist_tpu_torch.models.sage import SAGEConfig
+    from gist_tpu_torch.ops import dedup_spmm as K
+    from gist_tpu_torch.sampler import stack_batches
+    from gist_tpu_torch.train import capture
+    from gist_tpu_torch.train.cluster import train_cluster_gcn
+    from gist_tpu_torch.train.common import TrainConfig
+    from gist_tpu_torch.train.ist_cluster import _RoundCollector
+
+    cfg = SAGEConfig(100, 256, 47, n_layers=2, dropout=0.0)
+    tc = TrainConfig(lr=1e-2, weight_decay=0.0, n_epochs=3)
+    steps, per_step = 5, 5
+
+    parts = os.path.join(HERE, "scratch_chip", "partitions")
+    shutil.rmtree(parts, ignore_errors=True)   # made anew by this run
+
+    def run(scan):
+        return train_cluster_gcn(
+            dataclasses.replace(ds), cfg, tc, psize=50, batch_size=10,
+            normalize=True, use_f1=True, cache_dir=parts, scan_batches=scan,
+            verbose=False, device="cuda")
+    K.launches = 0
+    loop = run(False)
+    torch.cuda.synchronize()
+    loop_launches = K.launches
+    capture.reset_stats()
+    K.launches = 0
+    scan = run(True)
+    torch.cuda.synchronize()
+    at_capture, stats = K.launches, dict(capture.stats)
+    with _epoch_traces(torch) as loop_traces:
+        run(False)
+    capture.reset_stats()
+    with _replay_traces(torch) as replay_traces:
+        run(True)
+    per_replay = [_count(p, "dedup_spmm_kernel") for p in replay_traces]
+    launches = stats["captures"] * per_step + stats["replays"] * steps \
+        * per_step
+    rel = _rel_diff(scan["losses"], loop["losses"])
+    row = {"phase": "scan_batches", "epochs": tc.n_epochs,
+           "loop_losses": loop["losses"], "scan_losses": scan["losses"],
+           "loss_max_rel_diff": rel, "loop_val_f1": loop["val_accs"],
+           "scan_val_f1": scan["val_accs"],
+           "captures": stats["captures"], "capture_s": stats["capture_s"],
+           "replays": stats["replays"],
+           "k1_per_replay_profiler": per_replay,
+           "k1_counter_at_capture": at_capture,
+           "k1_loop_launches": loop_launches, "k1_scan_launches": launches,
+           "loop_steady_epoch_s": loop["steady_epoch_s"],
+           "scan_steady_epoch_s": scan["steady_epoch_s"],
+           "loop_epoch_device": _unit_device(loop_traces[1:],
+                                             loop["steady_epoch_s"]),
+           "scan_epoch_device": _unit_device(replay_traces[1:],
+                                             scan["steady_epoch_s"]),
+           "device_note": "second runs under torch.profiler: one trace an "
+                          "epoch of the loop (its steps and their batches' "
+                          "copies), one a replay of the scan (the stack's "
+                          "copy and the replay); epoch 0 left out"}
+    emit(row)
+    if loop_launches != tc.n_epochs * steps * per_step:
+        raise RuntimeError(f"loop: K1 launched {loop_launches} times")
+    if not _counts_match(per_replay, steps * per_step, tc.n_epochs):
+        raise RuntimeError(f"K1 per replay {per_replay}, want "
+                           f"{steps * per_step} in each of {tc.n_epochs}")
+    if at_capture != stats["captures"] * (1 + steps) * per_step:
+        raise RuntimeError(f"K1's counter read {at_capture} after "
+                           f"{stats['captures']} captures")
+    if not rel <= 1e-5:
+        raise RuntimeError(f"scanned losses {rel} off the loop's")
+
+    collector = _RoundCollector(sampler, steps, ids_only=True)
+    stacked = stack_batches(collector.collect())
+    g, ids = stacked.views({k: v.to("cuda")
+                            for k, v in stacked.tensors.items()})[0]
+    if g.dedup is None:
+        raise RuntimeError("the stacked batch carries no dedup layout")
+    d = g.dedup
+    rng = np.random.default_rng(0)
+    rows = {}
+    for f in (100, 256):
+        x = torch.from_numpy(rng.standard_normal(
+            (g.n_nodes, f)).astype(np.float32)).cuda()
+        err, prof = _replay_check(
+            torch, lambda: (K.dedup_spmm(d.job_offsets, d.w_blocks,
+                                         d.u_senders, x),),
+            lambda got: (K.dedup_spmm_reference(
+                d.job_offsets, d.w_blocks, d.u_senders, x),))
+        rows[f"fwd F={f}"] = {"rel_err": err,
+                              "k1_in_trace": _count(prof,
+                                                     "dedup_spmm_kernel")}
+    emit({"phase": "scan_batches", "k1_replay_vs_plain": rows,
+          "batch_nodes": g.n_nodes, "batch_jobs": int(d.w_blocks.shape[0]),
+          "note": REPLAY_COUNT_NOTE})
+    return launches, rows
+
+
+def _scan_epochs_case(torch, name, ds, model, cfg, graph, counters,
+                      per_epoch, tol=1e-4):
+    """``train_full_graph`` on ``graph`` for 6 epochs (lr 1e-2, weight
+    decay 5e-4, the LR schedule), the per-epoch loop against
+    ``scan_epochs=3``: losses within ``tol`` relative, accuracies equal;
+    ``counters`` (label -> (function reading a launch counter, kernel
+    name in the trace)) against ``per_epoch`` (label -> launches an
+    epoch, train and eval) in the loop, at capture (the warm-up epoch
+    and the captured one) and in every replay from the profiler; mean
+    epoch seconds and device busy and idle share of an epoch of each
+    (second runs under the profiler).  Returns the launches by label in
+    the scanned run."""
+    from gist_tpu_torch.ops import dedup_spmm as K
+    from gist_tpu_torch.ops import gat_tiled as GT
+    from gist_tpu_torch.ops import tiled_spmm as K3
+    from gist_tpu_torch.train import capture
+    from gist_tpu_torch.train.common import TrainConfig
+    from gist_tpu_torch.train.full_graph import train_full_graph
+
+    tc = TrainConfig(lr=1e-2, weight_decay=5e-4, n_epochs=6,
+                     lr_schedule=True)
+
+    def reset():
+        K.launches = K3.launches = 0
+        GT.reset_launches()
+
+    def run(k):
+        return train_full_graph(ds, cfg, tc, model=model, graph=graph,
+                                scan_epochs=k, device="cuda", verbose=False)
+
+    def read():
+        return {lab: fn() for lab, (fn, _) in counters.items()}
+    reset()
+    loop = run(0)
+    torch.cuda.synchronize()
+    loop_counts = read()
+    reset()
+    capture.reset_stats()
+    scan = run(3)
+    torch.cuda.synchronize()
+    at_capture, stats = read(), dict(capture.stats)
+    _, loop_prof = _profiled(torch, lambda: run(0))
+    with _replay_traces(torch) as traces:
+        run(3)
+    per_replay = {lab: [_count(p, kname) for p in traces]
+                  for lab, (_, kname) in counters.items()}
+    rel = _rel_diff(scan["losses"], loop["losses"])
+    loop_busy, loop_span = _busy(loop_prof)
+    e = tc.n_epochs
+    emit({"phase": "scan_epochs", "case": name, "epochs": e,
+          "scan_epochs": scan["scan_epochs"],
+          "loop_losses": loop["losses"], "scan_losses": scan["losses"],
+          "loss_max_rel_diff": rel, "loop_val_accs": loop["val_accs"],
+          "scan_val_accs": scan["val_accs"],
+          "loop_test_accs": loop["test_accs"],
+          "scan_test_accs": scan["test_accs"],
+          "launches_per_epoch_want": per_epoch, "loop_launches": loop_counts,
+          "counter_at_capture": at_capture, "per_replay_profiler": per_replay,
+          "captures": stats["captures"], "capture_s": stats["capture_s"],
+          "replays": stats["replays"],
+          "loop_mean_epoch_s": loop["mean_epoch_s"],
+          "scan_mean_epoch_s": scan["mean_epoch_s"],
+          "loop_epoch_device": {
+              "device_busy_ms": loop_busy / e,
+              "idle_share_of_span": 1 - loop_busy / loop_span
+              if loop_span else None},
+          "scan_epoch_device": _unit_device(traces, scan["mean_epoch_s"]),
+          "device_note": "second runs under torch.profiler: the loop's "
+                         "whole run (train and eval each epoch, per "
+                         "epoch), one trace a replay of the scan (one "
+                         "epoch, train and eval); the loop's mean_epoch_s "
+                         "times the train step, the scan's the epoch"})
+    if stats["captures"] != 1 or stats["replays"] != e:
+        raise RuntimeError(f"{name}: {stats}, want 1 capture and {e} "
+                           f"replays")
+    for lab, want in per_epoch.items():
+        if loop_counts[lab] != e * want:
+            raise RuntimeError(f"{name}: loop launched {lab} "
+                               f"{loop_counts[lab]} times, want {e * want}")
+        if at_capture[lab] != 2 * want:
+            raise RuntimeError(f"{name}: {lab}'s counter read "
+                               f"{at_capture[lab]} at capture, want "
+                               f"{2 * want}")
+        if not _counts_match(per_replay[lab], want, e):
+            raise RuntimeError(f"{name}: {lab} per replay "
+                               f"{per_replay[lab]}, want {want}")
+    if not rel <= tol:
+        raise RuntimeError(f"{name}: scanned losses {rel} off the loop's")
+    for k in ("val_accs", "test_accs"):
+        if scan[k] != loop[k]:
+            raise RuntimeError(f"{name}: scanned {k} differ from the loop's")
+    return {lab: want + e * want for lab, want in per_epoch.items()}
+
+
+def phase_scan_epochs_v1(torch, device, ds, graph):
+    """``scan_epochs`` cases (a) GCN h256 (K3: 4 launches forward and 2
+    transpose an epoch) and (b) GAT h512, 2 heads, 2 layers (K7 6, K8 3,
+    K9 3 an epoch) on the full synth-reddit-small v1 graph; then K3 and
+    the chain K7 -> K8 -> K9 captured alone and replayed on that graph
+    at F=256 and D=512, against their plain walks (1e-5 relative).
+    Returns (launches by kernel in the scanned runs, the replay rows)."""
+    import numpy as np
+
+    from gist_tpu_torch.models import gat, gcn
+    from gist_tpu_torch.ops import gat_tiled as GT
+    from gist_tpu_torch.ops import tiled_spmm as K3
+
+    launches = _scan_epochs_case(
+        torch, "a_v1_gcn_h256", ds, gcn,
+        gcn.GCNConfig(ds.in_feats, 256, ds.n_classes, n_layers=1,
+                      dropout=0.0), graph,
+        {"K3": (lambda: K3.launches, "tiled_spmm_kernel")}, {"K3": 6})
+    launches.update(_scan_epochs_case(
+        torch, "b_v1_gat_h512", ds, gat,
+        gat.GATConfig(ds.in_feats, 512, ds.n_classes, n_layers=2,
+                      n_heads=2), graph,
+        {"K7": (lambda: GT.launches_fwd, "tiled_gat_fwd_kernel"),
+         "K8": (lambda: GT.launches_b1, "tiled_gat_b1_kernel"),
+         "K9": (lambda: GT.launches_b2, "tiled_gat_b2_kernel")},
+        {"K7": 6, "K8": 3, "K9": 3}))
+
+    rng = np.random.default_rng(0)
+    n = graph.n_nodes
+
+    def randn(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(device)
+    rows = {}
+    x = randn(n, 256)
+    for direction, t in (("fwd", graph.tiled), ("bwd", graph.tiled_t)):
+        err, prof = _replay_check(
+            torch, lambda: (K3.tiled_spmm(t, x),),
+            lambda got: (K3.tiled_spmm_reference(t, x),))
+        rows[("K3", f"{direction} F=256")] = {
+            "rel_err": err, "in_trace": _count(prof, "tiled_spmm_kernel")}
+    slope, tf, tt = 0.01, graph.tiled, graph.tiled_t
+    z, src, dst, gg = randn(n, 512), randn(n), randn(n), randn(n, 512)
+
+    def chain():
+        out, m, l = GT.gat_tiled_fwd(tf, z, src, dst, slope)
+        ds_, ddst = GT.gat_tiled_bwd_b1(tf, z, src, dst, m, l, gg, slope)
+        dz, dsrc = GT.gat_tiled_bwd_b2(tt, ds_, gg, src, dst, m, l, slope)
+        return out, l, m, ds_, ddst, dz, dsrc
+
+    def plain(got):
+        _, l, m, ds_ = got[:4]
+        b1 = GT.gat_tiled_bwd_b1_reference(tf, z, src, dst, m, l, gg, slope)
+        b2 = GT.gat_tiled_bwd_b2_reference(tt, ds_, gg, src, dst, m, l,
+                                           slope)
+        out_p, m_p, l_p = GT.gat_tiled_fwd_reference(tf, z, src, dst, slope)
+        has = l_p > 0
+        # empty rows hold K7's -1e30 sentinel: compare m on the rows with
+        # edges (in place, after the walks that read it)
+        m.copy_(torch.where(has, m, 0.0))
+        return (out_p, l_p, torch.where(has, m_p, 0.0), *b1, *b2)
+    err, prof = _replay_check(torch, chain, plain)
+    rows[("K7-K9", "D=512")] = {
+        "rel_err": err, **{k: _count(prof, name) for k, name in (
+            ("K7", "tiled_gat_fwd_kernel"), ("K8", "tiled_gat_b1_kernel"),
+            ("K9", "tiled_gat_b2_kernel"))}}
+    emit({"phase": "scan_epochs", "replay_vs_plain": {
+        f"{k} {c}": v for (k, c), v in rows.items()},
+        "note": REPLAY_COUNT_NOTE})
+    return launches, rows
+
+
+def phase_scan_epochs_chunked(torch, device, ds, graph):
+    """``scan_epochs`` case (c): GCN h256, dropout 0, on the full-scale
+    path's chunked graph (K1 once per chunk: 4 C_f + 2 C_t launches an
+    epoch); then K1 per chunk (``run_dedup_chunked`` on ``dedup_c`` at
+    F=256) captured alone and replayed, against the chunked plain walk
+    (1e-5 relative).  Returns (K1's launches in the scanned run, the
+    replay row)."""
+    import numpy as np
+
+    from gist_tpu_torch.models import gcn
+    from gist_tpu_torch.ops import dedup_spmm as K
+
+    cf, ct = graph.dedup_c.n_chunks, graph.dedup_c_t.n_chunks
+    launches = _scan_epochs_case(
+        torch, "c_chunked_gcn_h256", ds, gcn,
+        gcn.GCNConfig(ds.in_feats, 256, ds.n_classes, n_layers=1,
+                      dropout=0.0), graph,
+        {"K1": (lambda: K.launches, "dedup_spmm_kernel")},
+        {"K1": 4 * cf + 2 * ct})["K1"]
+    rng = np.random.default_rng(0)
+    t, n = graph.dedup_c, graph.n_nodes
+    x = torch.from_numpy(rng.standard_normal((n, 256)).astype(
+        np.float32)).to(device)
+    err, prof = _replay_check(
+        torch, lambda: (K.run_dedup_chunked(t, x, n),),
+        lambda got: (_chunked_plain(torch, t, x, n),))
+    row = {"rel_err": err, "k1_in_trace": _count(prof, "dedup_spmm_kernel"),
+           "n_chunks": cf}
+    emit({"phase": "scan_epochs", "case": "c_chunked_gcn_h256",
+          "k1_replay_vs_plain": row, "note": REPLAY_COUNT_NOTE})
+    return launches, row
+
+
+def phase_sweep(torch):
+    """``python -m gist_tpu_torch.sweeps.run --sweep reddit-baseline
+    --limit 1 --device cuda`` as a function, into ``scratch_chip/``
+    (gitignored): SAGE h256, 1 layer, synth-reddit-small, psize 1500,
+    batch 20, 40 epochs through ``scan_batches=True``.  The runner records a failure instead
+    of raising, so the phase fails unless every record reads
+    ``"status": "ok"`` with finite losses.  Prints the captures and
+    replays, ``summarize``'s first row and the wall."""
+    from gist_tpu_torch.sweeps import run
+    from gist_tpu_torch.train import capture
+
+    out = os.path.join(HERE, "scratch_chip", "sweep_reddit_baseline.jsonl")
+    if os.path.exists(out):
+        os.remove(out)       # else the runner resumes and runs nothing
+    capture.reset_stats()
+    t0 = time.time()
+    records, rows = run.main(["--sweep", "reddit-baseline", "--limit", "1",
+                              "--device", "cuda", "--out", out])
+    wall = time.time() - t0
+    with open(out) as f:
+        lines = [json.loads(line) for line in f]
+    bad = [r for r in lines if r.get("status") != "ok"]
+    emit({"phase": "sweep", "records": len(lines), "wall_s": wall,
+          "run_wall_s": [r.get("wall_s") for r in lines],
+          "captures": capture.stats["captures"],
+          "capture_s": capture.stats["capture_s"],
+          "replays": capture.stats["replays"],
+          "summarize_first_row": rows[0] if rows else None,
+          "steady_epoch_s": [r["result"]["steady_epoch_s"]
+                             for r in lines if "result" in r],
+          "errors": [r.get("error") for r in bad]})
+    if not lines or bad or len(records) != 1:
+        raise RuntimeError(f"sweep records not all ok: {bad or lines}")
+    if not _finite(lines[0]["result"]["losses"]):
+        raise RuntimeError("sweep: non-finite loss")
+    if capture.stats["replays"] != 40:
+        raise RuntimeError(f"sweep: {capture.stats['replays']} replays for "
+                           f"40 epochs")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2388,7 +2899,7 @@ def main():
     ic_gcn_launches, uw_gcn_launches, gcn_k1 = phase_ist_gcn(
         torch, device, dataclasses.replace(ds_r), ds, gat_sampler, sampler)
     emit({"phase": "ist_gcn", "seconds": time.time() - t0})
-    del gat_sampler, sampler
+    del gat_sampler
 
     from gist_tpu_torch.graph import graph_from_edges
     t0 = time.time()
@@ -2425,6 +2936,23 @@ def main():
     v1_launches = phase_v1_main_path(torch, dataclasses.replace(ds_r),
                                      v1_graph, v1_build_s)
     emit({"phase": "v1_main_path", "seconds": time.time() - t0})
+
+    # the phases that replay CUDA graphs come after every phase that
+    # reads kernel times from a torch.profiler trace: once graphs had
+    # run, later traces were seen to miss kernel events
+    t0 = time.time()
+    scan_b_launches, scan_b_rows = phase_scan_batches(torch, ds, sampler)
+    emit({"phase": "scan_batches", "seconds": time.time() - t0})
+    del sampler
+
+    t0 = time.time()
+    phase_sweep(torch)
+    emit({"phase": "sweep", "seconds": time.time() - t0})
+
+    t0 = time.time()
+    scan_v1_launches, scan_v1_rows = phase_scan_epochs_v1(
+        torch, device, dataclasses.replace(ds_r), v1_graph)
+    emit({"phase": "scan_epochs_v1", "seconds": time.time() - t0})
     del ds_r, v1_graph
     torch.cuda.empty_cache()
 
@@ -2449,6 +2977,11 @@ def main():
     t0 = time.time()
     chunked_k4 = phase_gat_chunked(torch, device, ds_big, big_graph)
     emit({"phase": "gat_chunked", "seconds": time.time() - t0})
+
+    t0 = time.time()
+    scan_c_launches, scan_c_row = phase_scan_epochs_chunked(
+        torch, device, ds_big, big_graph)
+    emit({"phase": "scan_epochs_chunked", "seconds": time.time() - t0})
     del ds_big, big_graph
     torch.cuda.empty_cache()
 
@@ -2464,7 +2997,7 @@ def main():
         "replaces": "gist_tpu/ops/pallas_spmm.py:66",
         "launches": launches + full_launches + resume_launches
         + cli_launches + pp_launches + lsgd_launches + ic_gcn_launches
-        + uw_gcn_launches,
+        + uw_gcn_launches + scan_b_launches + scan_c_launches,
         "launches_by_path": {"sage_ultrawide": launches,
                              "full_graph_gcn": full_launches,
                              "uw_resume": resume_launches,
@@ -2473,7 +3006,11 @@ def main():
                              "ist_simulation": 0,
                              "lsgd": lsgd_launches,
                              "ist_cluster_gcn": ic_gcn_launches,
-                             "ultrawide_gcn": uw_gcn_launches},
+                             "ultrawide_gcn": uw_gcn_launches,
+                             "scan_batches": scan_b_launches,
+                             "scan_epochs_chunked_gcn": scan_c_launches},
+        "replay_rel_err": max([r["rel_err"] for r in scan_b_rows.values()]
+                              + [scan_c_row["rel_err"]]),
         "max_abs_err": max(c["max_abs_err"] for c in [
             *cases.values(), *chunked_rows.values(), *lsgd_k1.values(),
             *gcn_k1.values()]
@@ -2537,12 +3074,17 @@ def main():
     for key, name, source, replaces, case, path in v1_kernels:
         main_row = v1_rows[(key, case)]
         narrow = v1_rows.get((key, "D=41 float32"))   # K7-K9
+        scan_path, replay_key = ("scan_epochs_v1_gcn", "K3") \
+            if key == "K3" else ("scan_epochs_v1_gat", "K7-K9")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"gist_tpu_torch/csrc/{source}",
             "replaces": f"gist_tpu/ops/{replaces}",
-            "launches": v1_launches[key],
-            "launches_by_path": {path: v1_launches[key]},
+            "launches": v1_launches[key] + scan_v1_launches[key],
+            "launches_by_path": {path: v1_launches[key],
+                                 scan_path: scan_v1_launches[key]},
+            "replay_rel_err": max(r["rel_err"] for (k, _), r in
+                                  scan_v1_rows.items() if k == replay_key),
             "max_abs_err": max(r["max_abs_err"] for (k, tag), r in
                                [*v1_rows.items(), *v1_batch_rows.items()]
                                if k == key and tag.endswith("float32")),

@@ -1,7 +1,10 @@
 """Cluster-GCN single-device CLI (``gist_tpu/cli/cluster_gcn.py``).
 
     python -m gist_tpu_torch.cli.cluster_gcn --dataset synth-tiny \
-        --n-epochs 3 --psize 4 --batch-size 2 [--device cpu]
+        --n-epochs 3 --psize 4 --batch-size 2 [--scan-batches] [--device cpu]
+
+``--scan-batches`` stacks each epoch's batches and, on a card, replays
+them as one captured CUDA graph (``train_cluster_gcn``).
 """
 
 import argparse
@@ -30,7 +33,8 @@ def main(argv=None):
                    help="full-graph eval cadence in epochs (the last "
                         "epoch always evaluates)")
     p.add_argument("--scan-batches", action="store_true",
-                   help="one dispatch per epoch (not ported: raises)")
+                   help="one dispatch per epoch: the epoch's steps "
+                        "replayed as one CUDA graph on a card")
     p.add_argument("--dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="model compute dtype")
@@ -39,7 +43,7 @@ def main(argv=None):
     if args.model_type != "sage":
         raise ValueError("only --model-type sage is supported")
 
-    ds = load_dataset(args.dataset)
+    ds = load_dataset(args.dataset, args.data_root)
     print(ds.summary())
     cfg = sage.SAGEConfig(
         in_feats=ds.in_feats, n_hidden=args.n_hidden, n_classes=ds.n_classes,

@@ -19,8 +19,8 @@ _BACKENDS = {"auto": "auto", "segment": "segment", "pallas": "dedup"}
 def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dataset", type=str, default="synth-cora")
     p.add_argument("--data-root", type=str, default="./data",
-                   help="kept for the JAX package's command lines; the "
-                        "port serves the synthetic datasets only")
+                   help="directory of the on-disk datasets (planetoid, "
+                        "reddit, ppi, amazon2m)")
     p.add_argument("--dropout", type=float, default=0.5)
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--n-epochs", type=int, default=200)

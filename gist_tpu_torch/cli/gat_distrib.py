@@ -33,7 +33,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     device = apply_backend(args)
 
-    ds = load_dataset(args.dataset)
+    ds = load_dataset(args.dataset, args.data_root)
     print(ds.summary())
     cfg = gat.GATConfig(
         in_feats=ds.in_feats, n_hidden=args.n_hidden, n_classes=ds.n_classes,

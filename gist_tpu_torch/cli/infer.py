@@ -47,7 +47,7 @@ def main(argv=None):
                                                  load_checkpoint)
     from gist_tpu_torch.train.common import write_results
 
-    ds = load_dataset(args.dataset)
+    ds = load_dataset(args.dataset, args.data_root)
     if args.normalize:
         ds.normalize_features()
 

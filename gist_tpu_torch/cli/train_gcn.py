@@ -4,8 +4,8 @@
         --n-epochs 10 --n-hidden 16 [--profile-dir DIR] [--device cpu]
 
 ``--profile-dir`` writes a ``torch.profiler`` Chrome trace of the run
-there; ``--scan-epochs`` above 0 reaches the trainer, which raises (the
-port runs the per-epoch loop).
+there; ``--scan-epochs k`` runs the epochs in blocks of k, each block k
+replays of one captured epoch on a card (``train_full_graph``).
 """
 
 import argparse
@@ -24,14 +24,16 @@ def main(argv=None):
     p.add_argument("--self_loop", type=str, default="True")
     p.add_argument("--lr_scheduler", action="store_true", default=False)
     p.add_argument("--scan-epochs", type=int, default=0,
-                   help="epochs fused per dispatch (not ported: any value "
-                        "above 0 raises)")
+                   help="epochs per block of one host read; on a card "
+                        "each epoch is one CUDA-graph replay (0: the "
+                        "per-epoch loop)")
     p.add_argument("--profile-dir", type=str, default=None,
                    help="write a torch.profiler trace here")
     args = p.parse_args(argv)
     device = apply_backend(args)
 
-    ds = load_dataset(args.dataset, self_loop=str2bool(args.self_loop))
+    ds = load_dataset(args.dataset, args.data_root,
+                      self_loop=str2bool(args.self_loop))
     print(ds.summary())
     cfg = gcn.GCNConfig(
         in_feats=ds.in_feats, n_hidden=args.n_hidden, n_classes=ds.n_classes,

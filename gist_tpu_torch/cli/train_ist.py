@@ -39,7 +39,8 @@ def main(argv=None):
     if not str2bool(args.use_ist):
         raise ValueError("train_ist trains with IST: --use_ist True")
 
-    ds = load_dataset(args.dataset, self_loop=str2bool(args.self_loop))
+    ds = load_dataset(args.dataset, args.data_root,
+                      self_loop=str2bool(args.self_loop))
     if str2bool(args.use_random_proj):
         # densify and make the width divisible by num_subnet
         n_comp = (ds.in_feats // args.num_subnet) * args.num_subnet

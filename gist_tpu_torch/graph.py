@@ -775,3 +775,17 @@ def subgraph(senders, receivers, node_ids, n_nodes: int):
     r = mapping[np.asarray(receivers, dtype=np.int64)]
     keep = (s >= 0) & (r >= 0)
     return s[keep], r[keep], node_ids
+
+
+def sym_norm(graph: Graph) -> torch.Tensor:
+    """Symmetric GCN norm ``deg^{-1/2}`` over in-degrees, 0 where the
+    degree is 0 (``gist_tpu/graph.py:841``)."""
+    deg = graph.in_degrees
+    return torch.where(deg > 0, torch.rsqrt(deg.clamp(min=1.0)), 0.0)
+
+
+def inv_degree_norm(graph: Graph) -> torch.Tensor:
+    """Mean-aggregation norm ``1/deg`` over in-degrees, 0 where the
+    degree is 0 (``gist_tpu/graph.py:849``)."""
+    deg = graph.in_degrees
+    return torch.where(deg > 0, 1.0 / deg.clamp(min=1.0), 0.0)

@@ -15,6 +15,7 @@ training.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, replace
 from typing import Iterator, List, Optional
@@ -104,6 +105,75 @@ def unify_tile_buckets(batches: List[ClusterBatch]) -> List[ClusterBatch]:
             dedup=pad_dedup_tiles(g.dedup, jb, mj),
             dedup_t=pad_dedup_tiles(g.dedup_t, jbt, mjt))))
     return out
+
+
+def _tensor_fields(obj, prefix=""):
+    """(name, value) of every field of a Graph and of its layouts, by
+    dotted name; layouts that are None come as None."""
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            yield from _tensor_fields(v, f"{prefix}{f.name}.")
+        else:
+            yield prefix + f.name, v
+
+
+def _with_tensors(obj, tensors: dict, i: int, prefix=""):
+    """``obj`` with each tensor field replaced by row ``i`` of the
+    stacked tensor of the same name."""
+    kw = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        name = prefix + f.name
+        if dataclasses.is_dataclass(v):
+            kw[f.name] = _with_tensors(v, tensors, i, f"{name}.")
+        elif isinstance(v, torch.Tensor):
+            kw[f.name] = tensors[name][i]
+    return dataclasses.replace(obj, **kw)
+
+
+@dataclass(frozen=True)
+class StackedEpoch:
+    """A round of ids-form batches stacked on a leading axis (the JAX
+    package's ``_stack_batches``): ``tensors`` maps each graph field
+    (dotted, e.g. ``dedup.w_blocks``) and ``node_ids`` to its (B, ...)
+    stack; ``template`` is batch 0's graph, whose host values (node
+    count, ``max_jobs``, ``max_chunks``) every batch shares after
+    :func:`unify_tile_buckets`; ``key`` names the shapes, the key of a
+    capture."""
+    tensors: dict
+    template: Graph
+    key: tuple
+
+    def views(self, tensors: Optional[dict] = None) -> list:
+        """(graph, node_ids) of each batch, as views of ``tensors``
+        (default: the stack itself; a caller passes its static copy of
+        it on the card)."""
+        tensors = self.tensors if tensors is None else tensors
+        n = tensors["node_ids"].shape[0]
+        return [(_with_tensors(self.template, tensors, i),
+                 tensors["node_ids"][i]) for i in range(n)]
+
+
+def stack_batches(batches: List[ClusterBatch]) -> StackedEpoch:
+    """Stack a round of ids-form batches (re-padded first by
+    :func:`unify_tile_buckets`) on the host.  ``n_edges`` becomes the
+    padded count, as in the JAX package, since it differs per batch."""
+    batches = unify_tile_buckets(batches)
+    graphs = [b.graph.replace(n_edges=b.graph.n_edges_padded)
+              for b in batches]
+    fields = [dict(_tensor_fields(g)) for g in graphs]
+    names = [k for k, v in fields[0].items() if isinstance(v, torch.Tensor)]
+    statics = tuple((k, v) for k, v in fields[0].items() if k not in names)
+    for f in fields[1:]:
+        if tuple((k, v) for k, v in f.items() if k not in names) != statics:
+            raise ValueError("batches of one round differ in a host value "
+                             "of their layouts; re-pad them to one bucket")
+    tensors = {k: torch.stack([f[k] for f in fields]) for k in names}
+    tensors["node_ids"] = torch.stack([b.node_ids for b in batches])
+    key = statics + tuple((k, tuple(t.shape), t.dtype)
+                          for k, t in tensors.items())
+    return StackedEpoch(tensors=tensors, template=graphs[0], key=key)
 
 
 def _unify_gather_tiles(batches: List[ClusterBatch]) -> List[ClusterBatch]:

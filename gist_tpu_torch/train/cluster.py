@@ -6,8 +6,20 @@ device runs the step.  A multitask dataset (``labels_multi`` set)
 trains with the sigmoid BCE on its multi-hot labels and evaluates the
 threshold micro-F1; ``use_pp`` hands the model precomputed first-layer
 features (``ClusterSampler(use_pp=True)``; pass a config with
-``use_pp=True`` too, so the model skips that aggregation).  The
-epoch-scanned variant (``scan_batches``) is not ported."""
+``use_pp=True`` too, so the model skips that aggregation).
+
+``scan_batches=True`` is the JAX package's epoch scan: each epoch's
+``len(sampler)`` batches come from one :class:`_RoundCollector` round
+in ids form, are re-padded to one bucket and stacked on the host
+(:func:`~gist_tpu_torch.sampler.stack_batches`; a worker thread builds
+the next epoch's stack while the device trains), and their features,
+labels and masks are gathered from ``sampler.tables()`` on the device.
+On a card the epoch's steps (forward, loss, backward and Adam for every
+batch, each reading its slice of the stacked buffers) are captured once
+per padded bucket into a CUDA graph (:mod:`gist_tpu_torch.train.
+capture`), and each epoch is one copy of the stack into the graph's
+static buffers and one replay; the host reads the epoch's losses once.
+On the CPU the same stacked epoch runs as a loop over its slices."""
 
 from __future__ import annotations
 
@@ -23,8 +35,10 @@ from gist_tpu_torch.models import sage
 from gist_tpu_torch.models.common import (masked_accuracy,
                                           masked_bce_multitask,
                                           masked_cross_entropy, micro_f1)
-from gist_tpu_torch.sampler import ClusterSampler
+from gist_tpu_torch.sampler import ClusterSampler, stack_batches
+from gist_tpu_torch.train.capture import Captured, GraphCache
 from gist_tpu_torch.train.common import TrainConfig, make_optimizer
+from gist_tpu_torch.train.ist_cluster import _RoundCollector
 from gist_tpu_torch.utils import prefetch, resolve_device
 
 
@@ -49,10 +63,6 @@ def train_cluster_gcn(
 ) -> dict:
     """``init_params`` (a numpy parameter tree) replaces the seeded
     initialisation; ``eval_cpu`` evaluates the full graph on the CPU."""
-    if scan_batches:
-        raise NotImplementedError(
-            "scan_batches fuses an epoch into one XLA dispatch; the port "
-            "runs the per-batch loop")
     dev = resolve_device(device)
     eval_dev = torch.device("cpu") if eval_cpu else dev
     if normalize:
@@ -75,8 +85,60 @@ def train_cluster_gcn(
         params = params_from_jax(init_params, dev)
     leaves = [t.requires_grad_(True)
               for layer in params["layers"] for t in layer.values()]
-    opt = make_optimizer(leaves, tc.lr, tc.weight_decay)
+    # the scanned epoch's Adam steps inside a CUDA graph: capturable
+    opt = make_optimizer(leaves, tc.lr, tc.weight_decay,
+                         capturable=scan_batches)
     generator = torch.Generator(device=dev).manual_seed(tc.dropout_seed)
+
+    def train_step(graph, feats, labels, mask):
+        opt.zero_grad(set_to_none=True)
+        logits = model.apply(params, graph, feats, model_cfg, train=True,
+                             generator=generator)
+        loss = train_loss(logits, labels, mask)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    if scan_batches:
+        collector = _RoundCollector(sampler, len(sampler), ids_only=True)
+        tables = sampler.tables(dev)
+        captures = GraphCache()
+
+        def run_steps(views, out):
+            """One step per (graph, node ids) view; losses into out."""
+            for i, (graph, ids) in enumerate(views):
+                out[i] = train_step(graph, *(t.index_select(0, ids)
+                                             for t in tables))
+
+        def capture(stacked):
+            bufs = {k: v.to(dev) for k, v in stacked.tensors.items()}
+            views = stacked.views(bufs)
+            out = torch.zeros(len(views), device=dev)
+            run = Captured(lambda: run_steps(views, out), inputs=bufs,
+                           warmup=lambda: run_steps(views[:1], out),
+                           state=leaves, optimizers=[opt],
+                           generators=[generator])
+            return out, run
+
+        def stacked_epochs():
+            for _ in range(tc.n_epochs):
+                batches = collector.collect()
+                yield (stack_batches(batches),
+                       sum(b.n_real_edges for b in batches))
+
+        # the host builds the next epoch's stack while the card trains
+        epochs = prefetch(stacked_epochs(), depth=1)
+
+        def run_epoch_scanned():
+            """(step losses, real edges) of one epoch of stacked steps."""
+            stacked, e_real = next(epochs)
+            if dev.type != "cuda":
+                out = torch.zeros(len(stacked.tensors["node_ids"]))
+                run_steps(stacked.views(), out)
+                return out, e_real
+            out, run = captures.get(stacked.key, lambda: capture(stacked))
+            run.replay(stacked.tensors)
+            return out, e_real
 
     def evaluate():
         with torch.no_grad():
@@ -104,19 +166,20 @@ def train_cluster_gcn(
     val_accs, test_accs, losses = [], [], []
     for epoch in range(tc.n_epochs):
         t0 = time.time()
-        step_losses = []
-        for batch in prefetch(sampler):
-            batch = batch.to(dev)
-            opt.zero_grad(set_to_none=True)
-            logits = model.apply(params, batch.graph, batch.features,
-                                 model_cfg, train=True, generator=generator)
-            loss = train_loss(logits, batch.labels, batch.train_mask)
-            loss.backward()
-            opt.step()
-            step_losses.append(loss.detach())
-            total_edges += batch.n_real_edges
-        epoch_loss = float(torch.stack(step_losses).sum()) if step_losses \
-            else 0.0
+        if scan_batches:
+            step_losses, e_real = run_epoch_scanned()
+            total_edges += e_real
+        else:
+            step_losses = []
+            for batch in prefetch(sampler):
+                batch = batch.to(dev)
+                step_losses.append(train_step(
+                    batch.graph, batch.features, batch.labels,
+                    batch.train_mask))
+                total_edges += batch.n_real_edges
+            step_losses = torch.stack(step_losses) if step_losses \
+                else torch.zeros(0)
+        epoch_loss = float(step_losses.sum())   # one host read an epoch
         dt = time.time() - t0  # eval excluded
         total_time += dt
         epoch_times.append(dt)

@@ -36,12 +36,30 @@ def reference_lr_schedule(base_lr: float, n_epochs: int, epoch: int) -> float:
 
 
 def make_optimizer(params: Iterable[torch.Tensor], lr: float,
-                   weight_decay: float) -> torch.optim.Adam:
+                   weight_decay: float, *,
+                   capturable: bool = False) -> torch.optim.Adam:
     """Adam with coupled L2 (the decay is added to the gradient before
     the moment updates), betas (0.9, 0.999), eps 1e-8 — the same update
-    as the JAX package's ``add_decayed_weights`` + ``adam`` chain."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+    as the JAX package's ``add_decayed_weights`` + ``adam`` chain.
+
+    ``capturable=True`` makes the LR a 0-d float32 tensor on the params'
+    device (``opt.param_groups[0]["lr"]``; write it in place to change
+    it), so that a CUDA graph can replay the step with the LR of the
+    moment, as the JAX package scales an lr-1 Adam's updates by the
+    epoch's LR.  On a card the Adam is then capturable (its step counts
+    on the device too); on the CPU, where nothing is captured, it runs
+    per tensor, the form PyTorch's CPU Adam takes a tensor LR in.  The
+    update is the plain Adam's."""
+    params = list(params)
+    if not capturable:
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=weight_decay)
+    dev = params[0].device
+    lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
+    on_card = dev.type == "cuda"
+    return torch.optim.Adam(params, lr=lr_t, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay, capturable=on_card,
+                            foreach=on_card)
 
 
 def write_results(results: dict, path: Optional[str]) -> None:
@@ -54,3 +72,17 @@ def write_results(results: dict, path: Optional[str]) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         json.dump(results, f, indent=2, default=float)
+
+
+def print_reference_summary(results: dict) -> None:
+    """The reference's final stdout lines (``gist_tpu/train/common.py:
+    print_reference_summary``): training time, last and best val, last
+    and best test, each where the results hold it."""
+    if "train_time" in results:
+        print(f"Training Time: {results['train_time']:.4f}", flush=True)
+    if results.get("val_accs"):
+        print(f"Last Val: {results['val_accs'][-1]:.4f}", flush=True)
+        print(f"Best Val: {max(results['val_accs']):.4f}", flush=True)
+    if results.get("test_accs"):
+        print(f"Last Test: {results['test_accs'][-1]:.4f}", flush=True)
+        print(f"Best Test: {max(results['test_accs']):.4f}", flush=True)

@@ -125,11 +125,19 @@ def test_train_gcn_profile_and_unported_flags(tmp_path):
     train_gcn.main(["--dataset", "synth-tiny", "--n-epochs", "4",
                     "--profile-dir", str(prof), "--device", "cpu"])
     assert [f for f in os.listdir(prof) if f.endswith(".json")]
-    with pytest.raises(NotImplementedError):
-        train_gcn.main(["--dataset", "synth-tiny", "--scan-epochs", "2",
-                        "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        cluster_gcn.main(TINY + ["--scan-batches", "--device", "cpu"])
+    # the epoch scans: the trainers' result keys, and the scan's own
+    loop = train_gcn.main(["--dataset", "synth-tiny", "--n-epochs", "5",
+                           "--device", "cpu"])
+    scan = train_gcn.main(["--dataset", "synth-tiny", "--n-epochs", "5",
+                           "--scan-epochs", "2", "--device", "cpu"])
+    assert set(scan) == set(loop) | {"scan_epochs"}
+    assert scan["scan_epochs"] == 2 and len(scan["losses"]) == 5
+    np.testing.assert_allclose(scan["losses"], loop["losses"], rtol=1e-5)
+    no_dropout = TINY + ["--dropout", "0", "--device", "cpu"]
+    loop = cluster_gcn.main(no_dropout)
+    scan = cluster_gcn.main(no_dropout + ["--scan-batches"])
+    assert set(scan) == set(loop)
+    np.testing.assert_allclose(scan["losses"], loop["losses"], rtol=1e-5)
 
 
 def test_infer_multitask_matches_jax(tmp_path, monkeypatch):

@@ -1017,3 +1017,116 @@ def test_lsgd_round_through_kernel_matches_plain(cuda, tmp_path,
         for k in lc:
             a, b = lc[k].float().cpu(), lp[k].float()
             assert float((a - b).norm() / b.norm()) <= 1e-3, k
+
+
+# --- CUDA-graph capture: the epoch scans --------------------------------------
+
+
+def _replayed(fn):
+    """(the outputs of one replay of ``fn`` captured into a CUDA graph,
+    the capture) after the outputs were overwritten with NaN, so that
+    the replay must write every element."""
+    from gist_tpu_torch.train.capture import Captured
+    held = {}
+
+    def call():
+        out = fn()
+        held["out"] = out if isinstance(out, tuple) else (out,)
+    run = Captured(call)
+    for t in held["out"]:
+        t.fill_(float("nan"))
+    run.replay()
+    torch.cuda.synchronize()
+    return held["out"], run
+
+
+@pytest.mark.parametrize("f", [41, 256])
+def test_k1_and_k3_replays_match_eager(cuda, f):
+    """K1 on a flat dedup layout and K3 on a v1 layout, each captured
+    once and replayed on new inputs copied into the captured x: the
+    replay's output equals an eager launch's bit for bit (both sum in a
+    fixed order) and the plain walk's within 1e-5 relative."""
+    from gist_tpu_torch.ops import tiled_spmm as K3
+    rng = np.random.default_rng(1)
+    s, r, n = _edges("multi_job", rng)
+    d = _build_dedup_tiles(s, r, n, reorder=False)
+    jo, w, u = (t.to(cuda) for t in (d.job_offsets, d.w_blocks, d.u_senders))
+    g, n3 = _v1_graph("several_tiles", rng)
+    t = g.to(cuda).tiled
+    for launch, plain, n_rows in (
+            (lambda x: K.dedup_spmm(jo, w, u, x),
+             lambda x: K.dedup_spmm_reference(jo, w, u, x), n),
+            (lambda x: K3.tiled_spmm(t, x),
+             lambda x: K3.tiled_spmm_reference(t, x), n3)):
+        def rand():
+            return torch.from_numpy(rng.standard_normal(
+                (n_rows, f)).astype(np.float32)).to(cuda)
+        x = rand()
+        (got,), run = _replayed(lambda: launch(x))
+        assert torch.equal(got, launch(x))
+        x.copy_(rand())
+        run.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, launch(x))
+        assert _rel(got, plain(x)) <= 1e-5
+
+
+def test_cluster_scan_captured_matches_loop(cuda, monkeypatch):
+    """``train_cluster_gcn(scan_batches=True)`` on the card, K1 on every
+    batch: the epoch's steps captured per bucket and replayed once an
+    epoch give the loop's losses within 1e-5 relative; K1's counter
+    counts the warm-up's launches and the captured ones (5 a step, a
+    SAGE stack of 3 weight layers), and the replays one an epoch.  With
+    dropout, drawn from the generator registered with each capture, two
+    seeded runs agree."""
+    from gist_tpu_torch import sampler
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.models.sage import SAGEConfig
+    from gist_tpu_torch.train import capture
+    from gist_tpu_torch.train.cluster import train_cluster_gcn
+    from gist_tpu_torch.train.common import TrainConfig
+    monkeypatch.setattr(sampler, "TILES_MIN_EDGES", 0)
+
+    def run(scan, dropout=0.0):
+        ds = load_dataset("synth-tiny")
+        cfg = SAGEConfig(ds.in_feats, 16, ds.n_classes, n_layers=2,
+                         dropout=dropout)
+        return train_cluster_gcn(ds, cfg, TrainConfig(n_epochs=4), psize=6,
+                                 batch_size=2, scan_batches=scan,
+                                 verbose=False, device="cuda")
+    K.launches = 0
+    loop = run(False)
+    assert K.launches == 4 * 3 * 5
+    capture.reset_stats()
+    K.launches = 0
+    scan = run(True)
+    c = capture.stats["captures"]
+    assert capture.stats["replays"] == 4 and 1 <= c <= 4
+    assert K.launches == c * (1 + 3) * 5
+    np.testing.assert_allclose(scan["losses"], loop["losses"], rtol=1e-5)
+    a, b = run(True, 0.3), run(True, 0.3)
+    assert a["losses"] == b["losses"] != scan["losses"]
+    assert np.isfinite(a["losses"]).all()
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_full_graph_scan_on_card_matches_loop(cuda, model):
+    """``train_full_graph(scan_epochs=2)`` on a v1 graph (K3 for GCN,
+    K7-K9 for GAT) with the LR schedule: the replayed epochs give the
+    loop's losses within 1e-4 relative and its accuracies."""
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.models import gat, gcn
+    from gist_tpu_torch.train.common import TrainConfig
+    from gist_tpu_torch.train.full_graph import train_full_graph
+    ds = load_dataset("synth-tiny", self_loop=True)
+    graph = graph_from_edges(ds.senders, ds.receivers, ds.n_nodes,
+                             tiles=True, tile_mode="gather")
+    mod = gcn if model == "gcn" else gat
+    cfg = gcn.GCNConfig(ds.in_feats, 16, ds.n_classes, dropout=0.0) \
+        if model == "gcn" else gat.GATConfig(ds.in_feats, 16, ds.n_classes)
+    tc = TrainConfig(n_epochs=5, lr_schedule=True)
+    loop, scan = (train_full_graph(ds, cfg, tc, model=mod, graph=graph,
+                                   scan_epochs=k, verbose=False)
+                  for k in (0, 2))
+    np.testing.assert_allclose(scan["losses"], loop["losses"], rtol=1e-4)
+    assert scan["val_accs"] == loop["val_accs"]

@@ -150,6 +150,10 @@ def test_subgraph_equal(rng):
         np.testing.assert_array_equal(x, y)
 
 
-def test_load_dataset_rejects_non_synthetic():
+def test_load_dataset_rejects_non_synthetic(tmp_path):
+    """An unknown name raises KeyError; a real dataset's name without
+    its files raises FileNotFoundError, never a synthetic stand-in."""
     with pytest.raises(KeyError):
-        load_dataset("cora")
+        load_dataset("no-such-dataset")
+    with pytest.raises(FileNotFoundError):
+        load_dataset("cora", str(tmp_path))

@@ -225,10 +225,13 @@ def test_train_full_graph_matches_jax(rng, monkeypatch):
 
 def test_train_full_graph_unported_modes_raise(rng):
     _, tds = _datasets(rng, n=200)
-    cfg = tgcn.GCNConfig(16, 8, 5)
-    with pytest.raises(NotImplementedError):
-        train_full_graph(tds, cfg, TrainConfig(n_epochs=1), scan_epochs=4,
-                         device="cpu")
+    cfg = tgcn.GCNConfig(16, 8, 5, dropout=0.0)
+    scan = train_full_graph(tds, cfg, TrainConfig(n_epochs=6), scan_epochs=4,
+                            device="cpu", verbose=False)
+    loop = train_full_graph(tds, cfg, TrainConfig(n_epochs=6), device="cpu",
+                            verbose=False)
+    assert scan["scan_epochs"] == 4 and len(scan["losses"]) == 6
+    np.testing.assert_allclose(scan["losses"], loop["losses"], rtol=1e-5)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             train_full_graph(tds, cfg, TrainConfig(n_epochs=1))
