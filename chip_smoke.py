@@ -118,7 +118,35 @@ raising on failure:
     replayed against their plain walks;
 26. scan_epochs_chunked (run after phase 13): case (c), GCN h256 on the
     full-scale chunked graph (K1 4 C_f + 2 C_t a replay), the same
-    checks, and K1 per chunk replayed against its plain walk.
+    checks, and K1 per chunk replayed against its plain walk;
+27. sharded_graph (phases 27-29 run before phase 18, with ranks spawned
+    on the one card; each prints its backend and world size): on two
+    ranks (gloo: NCCL refuses two ranks on one device) the sharded
+    aggregation of synth-reddit-small at F=602 against the flat one,
+    forward and gradient (1e-5; K1 one forward and one transpose a rank),
+    the bf16 halo within the rounding of the rows that crossed, the
+    sharded GAT attention through K4 against the segment path (1e-5),
+    one sharded SAGE step's gradients against one rank's (1e-5), K1
+    against its plain walk on rank 0's interior layout, and
+    ``cli.sharded_train`` for SAGE h256, GCN h256 and GAT h512 (2 heads),
+    2 layers, 3 epochs, against the same CLI on one rank (nccl, in this
+    process; 1e-5, GCN's later epochs 1e-4), with launches per rank, and
+    a GCN run with a bf16 halo as the control that reads over those bars;
+    on one rank also the sharded aggregation's time against the flat K1
+    aggregation's;
+28. ist_mesh: ``train_ist_cluster(mesh=...)`` (SAGE h256 and GAT h512,
+    K=2, 2 ranks) and ``train_ist_ultrawide(sequential=False)`` (the
+    main path's SAGE h2048 K=8, 8 ranks, 1 round) against their
+    single-card loops: losses and accuracies within 1e-5, K1 and K4-K6
+    per rank as derived;
+29. ist_sharded_2d: ``cli.sharded_train --ist-subnets 2`` (SAGE h128,
+    2 layers, 2 rounds of 8 steps) on a 2 x 2 mesh (4 ranks: the graph
+    dim cut from 4 to 2) against S=2 x G=1 (2 ranks): K1 80 a rank, one
+    step's gradients on the 2-D mesh's graph rows against one rank's
+    (1e-5), the round-mean losses of the run and of the same run repeated
+    within 4e-5 (round 1) and 1e-3 (round 2: Adam's steps amplify
+    last-bit differences, and the run differs from itself as much), and
+    a bf16-halo control that reads over round 1's bar.
 
 Replayed outputs are held against the plain versions at 1e-5 relative to
 the plain result's max, after the outputs were overwritten with NaN.
@@ -158,7 +186,8 @@ def phase_device(torch):
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(out.stdout.strip(), flush=True)
     return {"name": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}
+            "count": torch.cuda.device_count(),
+            "power": out.stdout.strip()}
 
 
 def phase_build():
@@ -2822,6 +2851,719 @@ def phase_sweep(torch):
                            f"40 epochs")
 
 
+# ---------------------------------------------------------------------------
+# Multi-rank phases (27-29): ranks spawned on the one card
+# ---------------------------------------------------------------------------
+
+def _backend(torch, world):
+    """The collectives' backend of a world of ``world`` ranks on this
+    host's cards: nccl when every rank has a card of its own; gloo when
+    ranks share one, since NCCL refuses two ranks of one communicator on
+    one device ("Duplicate GPU detected", NCCL 2.28.9 on the H100)."""
+    return "nccl" if world <= torch.cuda.device_count() else "gloo"
+
+
+def _rank_main(rank, world, work, backend, job, args):
+    """A spawned rank: the process group (file rendezvous) and the
+    launcher's environment, as torchrun would set them, then ``job``;
+    its result is pickled to ``work``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    # a process's first optimizer step imports torch._dynamo; import it
+    # here, so that its seconds fall outside the jobs' clocks
+    t0 = time.time()
+    import torch._dynamo  # noqa: F401
+    warm_s = time.time() - t0
+    dist.init_process_group(backend, init_method=f"file://{work}/rdv",
+                            rank=rank, world_size=world)
+    try:
+        res = globals()[job](torch, rank, world, **args)
+        with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump((res, warm_s), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(torch, world, job, **args):
+    """Run ``job`` on ``world`` ranks of this card (each its own process,
+    started with ``spawn``); returns (backend, [each rank's result],
+    seconds).  The kernels were built by the build phase, so no rank
+    compiles."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+    backend = _backend(torch, world)
+    work = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    mp.start_processes(_rank_main, args=(world, work, backend, job, args),
+                       nprocs=world, start_method="spawn")
+    out, warm = [], []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+            res, warm_s = pickle.load(f)
+        out.append(res)
+        warm.append(warm_s)
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "spawn", "job": job, "world": world, "backend": backend,
+          "seconds": time.time() - t0, "dynamo_import_s": warm})
+    return backend, out, time.time() - t0
+
+
+def _counts():
+    from gist_tpu_torch.ops import dedup_spmm as K
+    from gist_tpu_torch.ops import gat_dedup as G
+    return {"K1": K.launches, "K4": G.launches_fwd, "K5": G.launches_b1,
+            "K6": G.launches_b2}
+
+
+def _reset_counts():
+    from gist_tpu_torch.ops import dedup_spmm as K
+    from gist_tpu_torch.ops import gat_dedup as G
+    K.launches = 0
+    G.reset_launches()
+
+
+# The sharded CLI runs of phase 27 (synth-reddit-small, 3 epochs, dropout
+# 0) and the launches one rank makes in each: an epoch is one training
+# step and one sharded infer.  SAGE (3 weight layers): K1 3 forward, 2
+# transpose (layer 0's input takes no gradient), infer 3 -> 8 an epoch.
+# GCN (3 layers): 3 forward and 3 transpose (layers 0 and 2 project
+# first, 602 > 256 and 256 > 41, so every aggregated tensor takes a
+# gradient), infer 3 -> 9.  GAT (2 layers): K4 once a layer forward and
+# in the infer, none in the backward (the exact segment recompute) -> 4.
+SHARDED_CLI = {
+    "sage": (["--model", "sage", "--n-hidden", "256"], {"K1": 8}),
+    "gcn": (["--model", "gcn", "--n-hidden", "256"], {"K1": 9}),
+    "gat": (["--model", "gat", "--n-hidden", "512", "--n-heads", "2"],
+            {"K4": 4}),
+}
+SHARDED_EPOCHS = 3
+# Each epoch's bar on the D=2 CLI losses against D=1's (relative).  On
+# the H100 SAGE and GAT read at most 1.3e-7.  GCN's second and third
+# epochs read 0 and 1.4e-6 in some runs of the same code and 2.3e-5 and
+# 3.7e-5 in others (the boundary sums' atomics, whose last bits Adam's
+# first steps, lr times the sign of each gradient entry, turn into loss
+# differences); a GCN run with a bf16 halo reads 1.2e-5, 4.7e-4 and
+# 1.8e-4, and the phase checks that this control reads over the bars.
+SHARDED_CLI_BARS = {"sage": [1e-5] * 3, "gcn": [1e-5, 1e-4, 1e-4],
+                    "gat": [1e-5] * 3}
+# Phase 29's bar on each round's mean loss, G=2 against G=1 (relative).
+# A round is 8 Adam steps, whose first steps (lr times the sign of each
+# gradient entry) turn last-bit differences of the summation order into
+# loss differences.  On the H100 round 1 reads 1.3-1.5e-5 at fp32 and
+# 8.1e-5 with a bf16 halo: its bar sits between, and the phase checks
+# the bf16 control stays over it.  Round 2 of the G=2 run differs from
+# the same run repeated by 3.1e-4, as much as from G=1 (1.7e-4 to
+# 4.8e-4); a bf16 halo reads 1.0e-3 there, so round 2 cannot tell the
+# two apart and its bar only sits over that spread.
+IST_2D_BARS = [4e-5, 1e-3]
+
+
+def _loss_rel(got, ref):
+    """Each epoch's |got - ref| / |ref|."""
+    return [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+
+
+def _sharded_cli(torch, model, extra=()):
+    """``cli.sharded_train`` as a function in the initialised group:
+    (result, launches of this rank, seconds)."""
+    from gist_tpu_torch.cli import sharded_train
+    argv, _ = SHARDED_CLI[model]
+    _reset_counts()
+    t0 = time.time()
+    r = sharded_train.main(["--dataset", "synth-reddit-small",
+                            "--n-layers", "2", "--dropout", "0",
+                            "--n-epochs", str(SHARDED_EPOCHS)] + argv
+                           + list(extra))
+    torch.cuda.synchronize()
+    if not r["interior_tiles"]:
+        raise RuntimeError(f"sharded {model}: no interior tiles")
+    return {"losses": r["losses"], "val_accs": r["val_accs"],
+            "train_time": r["train_time"], "launches": _counts(),
+            "seconds": time.time() - t0}
+
+
+BF16_HALO = ["--halo-dtype", "bfloat16"]
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max().clamp(min=1e-30))
+
+
+def _step_grads(torch, ds, sg, mesh, n_hidden):
+    """The summed gradients of one sharded SAGE step (2 hidden layers,
+    dropout 0, the CLI's seeded init) over the mesh's graph dim, on this
+    rank's rows of ``ds``: one flat host vector."""
+    import numpy as np
+
+    from gist_tpu_torch.models import sage
+    from gist_tpu_torch.parallel import comm
+    from gist_tpu_torch.parallel.graph_shard import shard_features, shard_rows
+    from gist_tpu_torch.parallel.train import build_sharded_step
+    rank, dev, n = mesh.get_local_rank("graph"), comm.mesh_device(mesh), \
+        sg.n_loc_pad
+    cfg = sage.SAGEConfig(ds.in_feats, n_hidden, ds.n_classes, n_layers=2,
+                          dropout=0.0)
+    p = sage.init(torch.Generator().manual_seed(3), cfg)
+    p = {"layers": [{k: v.to(dev) for k, v in l.items()}
+                    for l in p["layers"]]}
+
+    def rows(a):
+        return torch.from_numpy(shard_rows(sg, a)[rank * n:(rank + 1) * n]) \
+            .to(dev)
+    init_opt, step = build_sharded_step(sg, mesh, kind="sage", lr=1e-2,
+                                        weight_decay=0.0)
+    step(p, init_opt(p), shard_features(sg, ds.features, rank, dev),
+         rows(ds.labels.astype(np.int32)), rows(ds.train_mask))
+    return torch.cat([t.grad.reshape(-1) for l in p["layers"]
+                      for t in l.values()]).cpu()
+
+
+def _sharded_graph_ranks(torch, rank, world):
+    """Phase 27's work on each rank: the sharded aggregation of
+    synth-reddit-small at F=602 (forward, and the gradient of
+    ``sum(y * w)``), K1 counted; the bf16 halo against its rounding
+    bound; the sharded GAT attention (H=2, O=512) through K4 and the
+    hybrid merge against the segment path; one sharded SAGE h256 step's
+    gradients; rank 0 holds K1 against its plain walk on its interior
+    layout; then the three sharded CLI runs."""
+    import numpy as np
+
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.ops import dedup_spmm as K
+    from gist_tpu_torch.parallel import (build_sharded_graph, comm,
+                                         sharded_aggregate,
+                                         sharded_gat_attention)
+    from gist_tpu_torch.parallel.graph_shard import (gather_unshard,
+                                                     shard_features,
+                                                     shard_rows)
+    from gist_tpu_torch.parallel.train import device_arrays
+
+    out = {}
+    ds = load_dataset("synth-reddit-small")
+    mesh = comm.make_mesh("cuda", (world,), ("graph",))
+    group = mesh.get_group("graph")
+    t0 = time.time()
+    sg = build_sharded_graph(ds.senders, ds.receivers, ds.n_nodes, world)
+    out["graph_build_s"] = time.time() - t0
+    if sg.int_dedup is None:
+        raise RuntimeError("the sharded graph carries no interior tiles")
+    n = sg.n_loc_pad
+    rng = np.random.default_rng(0)
+    w_np = rng.standard_normal(ds.features.shape).astype(np.float32)
+    dev = comm.mesh_device(mesh)
+    x = shard_features(sg, ds.features, rank, dev).requires_grad_(True)
+    w = torch.from_numpy(shard_rows(sg, w_np)[rank * n:(rank + 1) * n]).to(
+        dev)
+    agg = sharded_aggregate(sg, mesh)
+    _reset_counts()
+    y = agg(x)
+    (y * w).sum().backward()
+    torch.cuda.synchronize()
+    out["agg_launches"] = _counts()
+    y_full = gather_unshard(sg, y.detach(), group)
+    dx_full = gather_unshard(sg, x.grad, group)
+    out.update(n_loc_pad=n, ring_shifts=list(sg.ring_shifts),
+               ring_pads=list(sg.ring_pads), comm=sg.comm_stats(f=602))
+    if rank == 0:
+        from gist_tpu_torch.graph import graph_from_edges
+        from gist_tpu_torch.ops.spmm import aggregate
+        g = graph_from_edges(ds.senders, ds.receivers, ds.n_nodes).to(dev)
+        xf = torch.from_numpy(ds.features).to(dev)
+        out["fwd_rel_err"] = _rel(y_full, aggregate(g, xf,
+                                                    backend="segment"))
+        out["grad_rel_err"] = _rel(dx_full, aggregate(
+            g.transpose(), torch.from_numpy(w_np).to(dev),
+            backend="segment"))
+        del g, xf
+    with torch.no_grad():
+        y16 = sharded_aggregate(sg, mesh, halo_dtype=torch.bfloat16)(x)
+        bound = agg(x.abs()) * 2.0 ** -8 + 1e-6
+        y32 = agg(x)
+    out["bf16_within_rounding"] = bool(((y16 - y32).abs() <= bound).all())
+    out["bf16_max_over_bound"] = float(((y16 - y32).abs() / bound).max())
+
+    # the sharded GAT attention: K4's partial softmax merged with the
+    # boundary partials, against the segment path on the same halo
+    da = device_arrays(sg, mesh)
+    g_rng = torch.Generator(device=dev).manual_seed(1 + rank)
+    z = torch.randn((n, 2, 512), generator=g_rng, device=dev)
+    src, dst = (torch.randn((n, 2), generator=g_rng, device=dev)
+                for _ in range(2))
+    with torch.no_grad():
+        _reset_counts()
+        att = sharded_gat_attention(sg, z, src, dst, da)
+        out["gat_k4_launches"] = _counts()["K4"]
+        seg_dev = {k: v for k, v in da.items() if k != "int_dedup"}
+        ref = sharded_gat_attention(sg, z, src, dst, seg_dev)
+    out["gat_hybrid_rel_err"] = _rel(att, ref)
+    del z, src, dst, att, ref
+    out["grads_h256"] = _step_grads(torch, ds, sg, mesh, 256)
+
+    if rank == 0:
+        xi = x.detach().contiguous()
+        rows = {}
+        for direction, t in (("fwd", da["int_dedup"]),
+                             ("bwd", da["int_dedup_t"])):
+            def kernel():
+                return K.dedup_spmm(t.job_offsets, t.w_blocks, t.u_senders,
+                                    xi)
+
+            def plain():
+                return K.dedup_spmm_reference(t.job_offsets, t.w_blocks,
+                                              t.u_senders, xi)
+            got, want = kernel(), plain()
+            abs_err = float((got - want).abs().max())
+            bound_ms, bound_by, _, _ = _k1_bound(torch, t, xi, got.shape[0])
+            rows[f"interior {direction} F=602 float32"] = {
+                "case": f"interior {direction} F=602 float32",
+                "max_abs_err": abs_err,
+                "rel_err": abs_err / float(want.abs().max()),
+                "ms": _kernel_ms(torch, kernel),
+                "plain_ms": _call_ms(torch, plain, reps=2),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        out["k1_interior"] = rows
+    del x, w, y, y_full, dx_full, da
+    torch.cuda.empty_cache()
+    out["cli"] = {m: _sharded_cli(torch, m) for m in SHARDED_CLI}
+    # the control of the CLI bars: a bf16 halo, a real loss of precision
+    # on the wire, must read over them
+    out["cli_gcn_bf16"] = _sharded_cli(torch, "gcn", BF16_HALO)
+    return out
+
+
+def _sharded_d1_in_parent(torch):
+    """Phase 27's one-rank part, in this process on a one-rank nccl
+    group: the card's time of the sharded aggregation at D=1 against
+    the flat K1 aggregation of the same graph (F=602, forward), one
+    sharded SAGE step's gradients at h256 and h128, and the three
+    sharded CLI runs at D=1."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.graph import graph_from_edges
+    from gist_tpu_torch.ops.spmm import aggregate
+    from gist_tpu_torch.parallel import (build_sharded_graph, comm,
+                                         sharded_aggregate)
+    from gist_tpu_torch.parallel.graph_shard import shard_features
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_d1_")
+    dist.init_process_group("nccl", init_method=f"file://{work}/rdv",
+                            rank=0, world_size=1)
+    try:
+        ds = load_dataset("synth-reddit-small")
+        dev = torch.device("cuda")
+        mesh = comm.make_mesh("cuda", (1,), ("graph",))
+        t0 = time.time()
+        sg = build_sharded_graph(ds.senders, ds.receivers, ds.n_nodes, 1)
+        t = {"graph_build_s": time.time() - t0}
+        if sg.int_dedup is None:
+            raise RuntimeError("the D=1 sharded graph carries no tiles")
+        t0 = time.time()
+        g = graph_from_edges(ds.senders, ds.receivers, ds.n_nodes,
+                             tiles=True).to(dev)
+        t["flat_graph_build_s"] = time.time() - t0
+        x_sh = shard_features(sg, ds.features, 0, dev)
+        x = torch.from_numpy(ds.features).to(dev)
+        agg = sharded_aggregate(sg, mesh)
+        with torch.no_grad():
+            t["d1_vs_flat_rel_err"] = _rel(agg(x_sh).index_select(
+                0, sg.node_perm.to(dev).long()), aggregate(g, x))
+            t["sharded_d1_ms"] = _kernel_ms(torch, lambda: agg(x_sh))
+            t["flat_ms"] = _kernel_ms(torch, lambda: aggregate(g, x))
+        t["ratio_sharded_over_flat"] = t["sharded_d1_ms"] / t["flat_ms"]
+        del g, x, x_sh
+        grads = {h: _step_grads(torch, ds, sg, mesh, h) for h in (256, 128)}
+        torch.cuda.empty_cache()
+        cli = {m: _sharded_cli(torch, m) for m in SHARDED_CLI}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    return t, grads, cli
+
+
+def _grad_rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+# Phase 28's trainers: (model, config, TrainConfig, trainer keywords) of
+# the SAGE h256 K=2 and GAT h512 K=2 cluster runs (the reddit-ist and
+# reddit-gat widths on synth-reddit-small, psize 10, batch 4: every batch
+# over TILES_MIN_EDGES) and the ultra-wide main path (SAGE h2048, 4
+# hidden layers, K=8, synth-amazon2m-small, psize 50, batch 10), with
+# the launches of one subnet's step.
+def _ist_mesh_runs():
+    from gist_tpu_torch.models import gat, sage
+    from gist_tpu_torch.train.common import TrainConfig
+    return {
+        "cluster_sage": ("cluster", sage, "sage",
+                         sage.SAGEConfig(602, 256, 41, n_layers=2,
+                                         dropout=0.2),
+                         TrainConfig(lr=3e-2, weight_decay=0.0, n_epochs=4,
+                                     num_subnet=2, iter_per_site=2),
+                         dict(psize=10, batch_size=4), {"K1": 5}),
+        "cluster_gat": ("cluster", gat, "gat",
+                        gat.GATConfig(602, 512, 41, n_layers=2, n_heads=2),
+                        TrainConfig(lr=1e-2, weight_decay=5e-4, n_epochs=8,
+                                    num_subnet=2, iter_per_site=4),
+                        dict(psize=10, batch_size=4, normalize=True),
+                        {"K4": 2, "K5": 3, "K6": 3}),
+        "ultrawide": ("ultrawide", sage, "sage",
+                      sage.SAGEConfig(100, 2048, 47, n_layers=4,
+                                      dropout=0.2),
+                      TrainConfig(lr=1e-2, weight_decay=0.0, n_epochs=8,
+                                  num_subnet=8, iter_per_site=5),
+                      dict(psize=50, batch_size=10, normalize=True,
+                           use_f1=True, eval_on_cpu=False), {"K1": 9}),
+    }
+
+
+def _ist_run(torch, name, cache_dir, mesh=None):
+    """One of phase 28's trainings, on a subnet mesh or (``mesh`` None)
+    as the single-card loop: (result, launches, seconds)."""
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.train.ist_cluster import train_ist_cluster
+    from gist_tpu_torch.train.ist_ultrawide import train_ist_ultrawide
+    trainer, model, kind, cfg, tc, kw, _ = _ist_mesh_runs()[name]
+    ds = load_dataset("synth-reddit-small" if trainer == "cluster"
+                      else "synth-amazon2m-small")
+    _reset_counts()
+    t0 = time.time()
+    if trainer == "cluster":
+        r = train_ist_cluster(ds, cfg, tc, model=model, kind=kind,
+                              mesh=mesh, cache_dir=cache_dir,
+                              verbose=False, device="cuda", **kw)
+    else:
+        r = train_ist_ultrawide(ds, cfg, tc, model=model, kind=kind,
+                                mesh=mesh, sequential=mesh is None,
+                                cache_dir=cache_dir, verbose=False,
+                                device="cuda", **kw)
+    torch.cuda.synchronize()
+    keep = ("losses", "val_accs", "test_accs", "round_wall_s",
+            "edges_per_batch", "train_time")
+    return {k: r[k] for k in keep}, _counts(), time.time() - t0
+
+
+def _job_ist_mesh(torch, rank, world, names, cache_dir):
+    """Phase 28's mesh runs ``names`` on a subnet mesh of all ranks."""
+    from gist_tpu_torch.ist.distributed import make_subnet_mesh
+    mesh = make_subnet_mesh(world, "cuda")
+    return {n: _ist_run(torch, n, cache_dir, mesh) for n in names}
+
+
+# Phase 29: cli.sharded_train --ist-subnets 2 at benchmarks/
+# ist_sharded_2d.py's configuration (SAGE h128, 2 layers, lr 1e-2,
+# synth-reddit-small), 2 rounds of 8 steps; the graph dim cut from 4 to
+# 2 (4 ranks on the card).  K1 per rank: 5 a step (3 forward, 2
+# transpose); the eval runs the flat graph's segment path.
+IST_2D_ROUNDS, IST_2D_STEPS = 2, 8
+
+
+def _ist_2d_cli(torch, world, extra=()):
+    from gist_tpu_torch.cli import sharded_train
+    _reset_counts()
+    t0 = time.time()
+    r = sharded_train.main([
+        "--dataset", "synth-reddit-small", "--model", "sage",
+        "--n-hidden", "128", "--n-layers", "2", "--dropout", "0",
+        "--lr", "1e-2", "--ist-subnets", "2", "--n-devices", str(world),
+        "--n-epochs", str(IST_2D_ROUNDS),
+        "--iter_per_site", str(IST_2D_STEPS)] + list(extra))
+    torch.cuda.synchronize()
+    if not r["interior_tiles"]:
+        raise RuntimeError("2-D mesh: no interior tiles")
+    return {"losses": r["losses"], "val_accs": r["val_accs"],
+            "mesh_2d": r["mesh_2d"], "train_time": r["train_time"],
+            "launches": _counts(), "seconds": time.time() - t0}
+
+
+def _job_ist_2d(torch, rank, world):
+    """Phase 29 on S=2 x G=world/2 ranks: the CLI, the witnesses of its
+    bar (the same run again, and a bf16-halo control), then one sharded
+    SAGE h128 step's gradients over the 2-D mesh's graph dim."""
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.parallel import build_sharded_graph
+    from gist_tpu_torch.parallel.ist_sharded import make_ist_graph_mesh
+    out = _ist_2d_cli(torch, world)
+    out["repeat"] = _ist_2d_cli(torch, world)
+    out["bf16"] = _ist_2d_cli(torch, world, BF16_HALO)
+    ds = load_dataset("synth-reddit-small")
+    mesh = make_ist_graph_mesh(2, world // 2, "cuda")
+    sg = build_sharded_graph(ds.senders, ds.receivers, ds.n_nodes,
+                             world // 2)
+    out["grads_h128"] = _step_grads(torch, ds, sg, mesh, 128)
+    return out
+
+
+def _job_pair(torch, rank, world, cache_dir):
+    """The two-rank world: phase 27's ranks, phase 28's cluster-trainer
+    mesh runs and phase 29's S=2 x G=1 reference, in turn."""
+    from gist_tpu_torch.ist.distributed import make_subnet_mesh
+    out = {"sharded_graph": _sharded_graph_ranks(torch, rank, world)}
+    mesh = make_subnet_mesh(world, "cuda")
+    out["ist_mesh"] = {n: _ist_run(torch, n, cache_dir, mesh)
+                       for n in ("cluster_sage", "cluster_gat")}
+    out["ist_2d_ref"] = _ist_2d_cli(torch, world)
+    return out
+
+
+def _check_sharded_graph(ranks, d1_times, d1_grads, d1_cli):
+    """Phase 27's bars; returns its launches by kernel (every rank, the
+    one-rank runs included)."""
+    r0 = ranks[0]
+    for r in ranks:
+        if r["agg_launches"]["K1"] != 2:
+            raise RuntimeError(f"K1 launched {r['agg_launches']} times in "
+                               f"one sharded aggregation and its gradient, "
+                               f"want 1 forward and 1 transpose a rank")
+        if not r["bf16_within_rounding"]:
+            raise RuntimeError("the bf16 halo is off by more than bf16 "
+                               "rounding of the rows that crossed")
+        if r["gat_k4_launches"] != 1 or not r["gat_hybrid_rel_err"] <= 1e-5:
+            raise RuntimeError(f"sharded GAT through K4: "
+                               f"{r['gat_k4_launches']} launches, rel err "
+                               f"{r['gat_hybrid_rel_err']} (bar 1e-5)")
+        if not _grad_rel(r["grads_h256"], d1_grads[256]) <= 1e-5:
+            raise RuntimeError("sharded SAGE step: D=2 gradients off D=1's")
+    if not (r0["fwd_rel_err"] <= 1e-5 and r0["grad_rel_err"] <= 1e-5):
+        raise RuntimeError(f"sharded aggregation off the flat one: "
+                           f"{r0['fwd_rel_err']}, {r0['grad_rel_err']}")
+    if not d1_times["d1_vs_flat_rel_err"] <= 1e-5:
+        raise RuntimeError("the D=1 sharded aggregation is off the flat one")
+    for row in r0["k1_interior"].values():
+        if not row["rel_err"] <= 1e-5:
+            raise RuntimeError(f"K1 on the interior layout disagrees with "
+                               f"its plain walk: {row}")
+    launches = {
+        "K1": sum(r["agg_launches"]["K1"] for r in ranks)
+        + sum(c["launches"]["K1"] for c in d1_cli.values()),
+        "K4": sum(r["gat_k4_launches"] for r in ranks)
+        + sum(c["launches"]["K4"] for c in d1_cli.values())}
+    for m, (_, want) in SHARDED_CLI.items():
+        ref = d1_cli[m]["losses"]
+        for name, got in [(m, r["cli"][m]) for r in ranks]:
+            if len(got["losses"]) != SHARDED_EPOCHS or not _finite(
+                    got["losses"]):
+                raise RuntimeError(f"sharded {name}: bad losses {got}")
+            tols = SHARDED_CLI_BARS[m]
+            if not all(e <= tol for e, tol in
+                       zip(_loss_rel(got["losses"], ref), tols)):
+                raise RuntimeError(f"sharded {name} D=2 losses "
+                                   f"{got['losses']} off D=1 {ref} (bars "
+                                   f"{tols})")
+            for k, per_epoch in want.items():
+                if got["launches"][k] != per_epoch * SHARDED_EPOCHS:
+                    raise RuntimeError(f"sharded {m}: {k} launched "
+                                       f"{got['launches']}, want "
+                                       f"{per_epoch} an epoch")
+                launches[k] += got["launches"][k]
+        for k, per_epoch in want.items():
+            if d1_cli[m]["launches"][k] != per_epoch * SHARDED_EPOCHS:
+                raise RuntimeError(f"sharded {m} at D=1: {k} launched "
+                                   f"{d1_cli[m]['launches']}")
+    for r in ranks:
+        got = r["cli_gcn_bf16"]
+        if got["launches"]["K1"] != SHARDED_CLI["gcn"][1]["K1"] \
+                * SHARDED_EPOCHS or not _finite(got["losses"]):
+            raise RuntimeError(f"sharded gcn, bf16 halo: {got}")
+        if not any(e > tol for e, tol in zip(
+                _loss_rel(got["losses"], d1_cli["gcn"]["losses"]),
+                SHARDED_CLI_BARS["gcn"])):
+            raise RuntimeError(f"the CLI bars do not tell a bf16 halo apart:"
+                               f" {got['losses']} against D=1's "
+                               f"{d1_cli['gcn']['losses']}")
+        launches["K1"] += got["launches"]["K1"]
+    return launches
+
+
+def _check_ist_mesh(name, ranks, loop):
+    """Phase 28's bars for one run; returns its launches (every rank)."""
+    from gist_tpu_torch.sampler import TILES_MIN_EDGES
+    _, _, _, _, tc, _, per_step = _ist_mesh_runs()[name]
+    res0 = ranks[0][0]
+    steps = len(res0["losses"]) * tc.iter_per_site
+    if not all(e >= TILES_MIN_EDGES for e in res0["edges_per_batch"]):
+        raise RuntimeError(f"{name}: a batch fell under the layout's edge "
+                           f"threshold")
+    total = dict.fromkeys(("K1", "K4", "K5", "K6"), 0)
+    for res, launches, _ in ranks:
+        if res["losses"] != res0["losses"] or \
+                res["val_accs"] != res0["val_accs"]:
+            raise RuntimeError(f"{name}: ranks return other results")
+        for k, n in per_step.items():
+            if launches[k] != n * steps:
+                raise RuntimeError(f"{name}: {k} launched {launches} on a "
+                                   f"rank, want {n} a step")
+            total[k] += launches[k]
+    for a, b in zip(res0["losses"] + res0["val_accs"],
+                    loop["losses"] + loop["val_accs"]):
+        if not abs(a - b) <= 1e-5 * abs(b):
+            raise RuntimeError(f"{name}: mesh {res0['losses']} "
+                               f"{res0['val_accs']} off the loop's "
+                               f"{loop['losses']} {loop['val_accs']}")
+    if not _finite(res0["losses"] + res0["val_accs"]):
+        raise RuntimeError(f"{name}: non-finite loss or accuracy")
+    return total
+
+
+def phase_multi_rank(torch, power):
+    """Phases 27-29, ranks on the one card.  The one-rank and
+    single-card references run first in this process, then three worlds
+    of spawned ranks: two (phase 27's ranks, phase 28's cluster-trainer
+    meshes, phase 29's S=2 x G=1 reference), eight (phase 28's
+    ultra-wide mesh) and four (phase 29's 2 x 2 mesh).  Returns the
+    launches by phase and kernel, and K1's interior rows."""
+    import tempfile
+    t_ref = time.time()
+    d1_times, d1_grads, d1_cli = _sharded_d1_in_parent(torch)
+    d1_s = time.time() - t_ref
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_parts_")
+    loops = {name: _ist_run(torch, name, cache_dir)
+             for name in _ist_mesh_runs()}
+    ref_s = time.time() - t_ref
+    pair_backend, pair, pair_s = _spawn(torch, 2, "_job_pair",
+                                        cache_dir=cache_dir)
+    uw_backend, uw, uw_s = _spawn(torch, 8, "_job_ist_mesh",
+                                  names=["ultrawide"], cache_dir=cache_dir)
+    b4, r4, s4 = _spawn(torch, 4, "_job_ist_2d")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    emit({"phase": "multi_rank_worlds", "references_s": ref_s,
+          "world2_s": pair_s, "world8_s": uw_s, "world4_s": s4})
+
+    sg_ranks = [r["sharded_graph"] for r in pair]
+    r0 = sg_ranks[0]
+    emit({"phase": "sharded_graph", "part": "one_rank", "backend": "nccl",
+          "world": 1, "card": power, "seconds": d1_s, **d1_times,
+          "cli_losses": {m: c["losses"] for m, c in d1_cli.items()},
+          "cli_seconds": {m: c["seconds"] for m, c in d1_cli.items()},
+          "cli_launches": {m: c["launches"] for m, c in d1_cli.items()}})
+    emit({"phase": "sharded_graph", "part": "two_ranks",
+          "backend": pair_backend, "world": 2,
+          "graph_build_s": [r["graph_build_s"] for r in sg_ranks],
+          "n_loc_pad": r0["n_loc_pad"], "ring_shifts": r0["ring_shifts"],
+          "ring_pads": r0["ring_pads"], "comm_f602": r0["comm"],
+          "agg_launches": [r["agg_launches"] for r in sg_ranks],
+          "fwd_rel_err": r0["fwd_rel_err"],
+          "grad_rel_err": r0["grad_rel_err"],
+          "bf16_max_over_bound": [r["bf16_max_over_bound"]
+                                  for r in sg_ranks],
+          "gat_hybrid_rel_err": [r["gat_hybrid_rel_err"] for r in sg_ranks],
+          "gat_k4_launches": [r["gat_k4_launches"] for r in sg_ranks],
+          "step_grad_rel_err_vs_d1": [_grad_rel(r["grads_h256"],
+                                                d1_grads[256])
+                                      for r in sg_ranks],
+          "k1_interior": r0["k1_interior"],
+          "cli": {m: {"losses": r0["cli"][m]["losses"],
+                      "val_accs": r0["cli"][m]["val_accs"],
+                      "seconds": r0["cli"][m]["seconds"],
+                      "rel_vs_d1": _loss_rel(r0["cli"][m]["losses"],
+                                             d1_cli[m]["losses"]),
+                      "bars": SHARDED_CLI_BARS[m],
+                      "launches": [r["cli"][m]["launches"]
+                                   for r in sg_ranks]}
+                  for m in SHARDED_CLI},
+          "gcn_bf16_control": {
+              "rel_vs_d1": _loss_rel(r0["cli_gcn_bf16"]["losses"],
+                                     d1_cli["gcn"]["losses"]),
+              "seconds": r0["cli_gcn_bf16"]["seconds"]}})
+
+    meshes = {n: (pair_backend, 2, [r["ist_mesh"][n] for r in pair])
+              for n in ("cluster_sage", "cluster_gat")}
+    meshes["ultrawide"] = (uw_backend, 8, [r["ultrawide"] for r in uw])
+    for name, (backend, world, ranks) in meshes.items():
+        loop, loop_launches, loop_s = loops[name]
+        res0 = ranks[0][0]
+        emit({"phase": "ist_mesh", "run": name, "backend": backend,
+              "world": world, "rank_seconds": [r[2] for r in ranks],
+              "loop_seconds": loop_s, "losses": res0["losses"],
+              "loop_losses": loop["losses"], "val_accs": res0["val_accs"],
+              "loop_val_accs": loop["val_accs"],
+              "round_wall_s": res0["round_wall_s"],
+              "loop_round_wall_s": loop["round_wall_s"],
+              "launches_per_rank": [r[1] for r in ranks],
+              "loop_launches": loop_launches})
+
+    ref2 = [r["ist_2d_ref"] for r in pair]
+    emit({"phase": "ist_sharded_2d", "backend": b4, "world": 4,
+          "mesh_2d": r4[0]["mesh_2d"], "cut": "graph dim 4 -> 2",
+          "seconds": [r["seconds"] for r in r4],
+          "losses": r4[0]["losses"], "val_accs": r4[0]["val_accs"],
+          "train_time": r4[0]["train_time"],
+          "launches_per_rank": [r["launches"] for r in r4],
+          "step_grad_rel_err_vs_d1": [_grad_rel(r["grads_h128"],
+                                                d1_grads[128]) for r in r4],
+          "rel_vs_g1": _loss_rel(r4[0]["losses"], ref2[0]["losses"]),
+          "bars": IST_2D_BARS,
+          "witness": {
+              "repeat_vs_g1": _loss_rel(r4[0]["repeat"]["losses"],
+                                        ref2[0]["losses"]),
+              "repeat_vs_first": _loss_rel(r4[0]["repeat"]["losses"],
+                                           r4[0]["losses"]),
+              "bf16_vs_g1": _loss_rel(r4[0]["bf16"]["losses"],
+                                      ref2[0]["losses"]),
+              "seconds": [r4[0]["repeat"]["seconds"],
+                          r4[0]["bf16"]["seconds"]]},
+          "reference": {"backend": pair_backend, "world": 2,
+                        "mesh_2d": ref2[0]["mesh_2d"],
+                        "seconds": [r["seconds"] for r in ref2],
+                        "losses": ref2[0]["losses"],
+                        "val_accs": ref2[0]["val_accs"],
+                        "train_time": ref2[0]["train_time"]}})
+
+    # every line is out before the first check can raise
+    launches = {"sharded_graph": _check_sharded_graph(sg_ranks, d1_times,
+                                                      d1_grads, d1_cli),
+                "ist_mesh": dict.fromkeys(("K1", "K4", "K5", "K6"), 0)}
+    for name, (_, _, ranks) in meshes.items():
+        for k, v in _check_ist_mesh(name, ranks, loops[name][0]).items():
+            launches["ist_mesh"][k] += v
+    want = 5 * IST_2D_ROUNDS * IST_2D_STEPS
+    runs_2d = ref2 + [x for r in r4 for x in (r, r["repeat"], r["bf16"])]
+    for r in runs_2d:
+        if r["launches"]["K1"] != want:
+            raise RuntimeError(f"2-D mesh: K1 launched {r['launches']} on a "
+                               f"rank, want {want}")
+    for key in (None, "repeat", "bf16"):
+        got = [r if key is None else r[key] for r in r4]
+        if any(g["losses"] != got[0]["losses"] for g in got):
+            raise RuntimeError("2-D mesh: ranks return other losses")
+    for r in r4:
+        if not _grad_rel(r["grads_h128"], d1_grads[128]) <= 1e-5:
+            raise RuntimeError("2-D mesh: a graph row's step gradients are "
+                               "off the one-rank step's")
+    # a round's loss is the mean over 8 Adam steps: the first is the
+    # initial params' forward, the later ones carry Adam's amplification
+    # of last-bit gradient differences (see SHARDED_CLI_BARS)
+    for key in (None, "repeat"):
+        got = r4[0]["losses"] if key is None else r4[0][key]["losses"]
+        if not _finite(got) or not all(
+                e <= tol for e, tol in
+                zip(_loss_rel(got, ref2[0]["losses"]), IST_2D_BARS)):
+            raise RuntimeError(f"2-D mesh losses {got} off the S=2 x G=1 "
+                               f"run's {ref2[0]['losses']} (bars "
+                               f"{IST_2D_BARS})")
+    if not _loss_rel(r4[0]["bf16"]["losses"][:1],
+                     ref2[0]["losses"][:1])[0] > IST_2D_BARS[0]:
+        raise RuntimeError(f"the 2-D round-1 bar does not tell a bf16 halo "
+                           f"apart: {r4[0]['bf16']['losses']} against "
+                           f"{ref2[0]['losses']}")
+    launches["ist_sharded_2d"] = {
+        "K1": sum(r["launches"]["K1"] for r in runs_2d)}
+    return launches, r0["k1_interior"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2986,6 +3728,13 @@ def main():
     torch.cuda.empty_cache()
 
     t0 = time.time()
+    multi, k1_interior = phase_multi_rank(torch, dev["power"])
+    emit({"phase": "multi_rank", "seconds": time.time() - t0})
+    sharded_launches, mesh_launches = multi["sharded_graph"], \
+        multi["ist_mesh"]
+    ist_2d_launches = multi["ist_sharded_2d"]["K1"]
+
+    t0 = time.time()
     cli_launches = phase_uw_cli_chunked_eval(torch, device)
     emit({"phase": "uw_cli_chunked_eval", "seconds": time.time() - t0})
 
@@ -2997,7 +3746,8 @@ def main():
         "replaces": "gist_tpu/ops/pallas_spmm.py:66",
         "launches": launches + full_launches + resume_launches
         + cli_launches + pp_launches + lsgd_launches + ic_gcn_launches
-        + uw_gcn_launches + scan_b_launches + scan_c_launches,
+        + uw_gcn_launches + scan_b_launches + scan_c_launches
+        + sharded_launches["K1"] + mesh_launches["K1"] + ist_2d_launches,
         "launches_by_path": {"sage_ultrawide": launches,
                              "full_graph_gcn": full_launches,
                              "uw_resume": resume_launches,
@@ -3008,13 +3758,17 @@ def main():
                              "ist_cluster_gcn": ic_gcn_launches,
                              "ultrawide_gcn": uw_gcn_launches,
                              "scan_batches": scan_b_launches,
-                             "scan_epochs_chunked_gcn": scan_c_launches},
+                             "scan_epochs_chunked_gcn": scan_c_launches,
+                             "sharded_graph": sharded_launches["K1"],
+                             "ist_mesh": mesh_launches["K1"],
+                             "ist_sharded_2d": ist_2d_launches},
         "replay_rel_err": max([r["rel_err"] for r in scan_b_rows.values()]
                               + [scan_c_row["rel_err"]]),
-        "max_abs_err": max(c["max_abs_err"] for c in [
+        "max_abs_err": max([c["max_abs_err"] for c in [
             *cases.values(), *chunked_rows.values(), *lsgd_k1.values(),
-            *gcn_k1.values()]
-            if c["case"].endswith("float32")),
+            *gcn_k1.values()] if c["case"].endswith("float32")]
+            + [r["max_abs_err"] for r in k1_interior.values()]),
+        "sharded_interior": k1_interior,
         "ms": main_case["ms"], "call_ms": main_case["call_ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
@@ -3043,12 +3797,16 @@ def main():
     for (key, name, replaces), count in zip(gat_kernels, gat_launches):
         main_row = gat_rows[(key, "H=2 O=256 float32")]
         extra = chunked_k4 if key == "K4" else 0
+        sharded = sharded_launches["K4"] if key == "K4" else 0
         kernels.append({
             "name": name, "route": "cuda",
             "source": "gist_tpu_torch/csrc/gat_dedup.cu",
-            "replaces": replaces, "launches": count + extra,
+            "replaces": replaces,
+            "launches": count + extra + sharded + mesh_launches[key],
             "launches_by_path": {"gat_gist": count,
-                                 **({"full_graph_gat": extra}
+                                 "gat_gist_mesh": mesh_launches[key],
+                                 **({"full_graph_gat": extra,
+                                     "sharded_gat": sharded}
                                     if key == "K4" else {})},
             "max_abs_err": max(r["max_abs_err"] for (k, tag), r in
                                gat_rows.items()

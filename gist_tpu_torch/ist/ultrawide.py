@@ -2,21 +2,26 @@
 resident 1/K-width sub-models (``gist_tpu/ist/ultrawide.py``).
 
 The host side (boundary sampling, dispatch, merge) is numpy and gives
-the JAX package's results exactly.  The device side is the sequential
-burst: one sub-model at a time trains for a round's batches with a
-fresh Adam.  The mesh burst (``build_local_burst``) waits for the
-distributed slice.
+the JAX package's results exactly.  The device side trains a 1/K-width
+sub-model for a round's batches with a fresh Adam: one after another on
+one device (:func:`build_local_burst_single`), or each rank of a
+``subnet`` mesh its own, the trained shards then gathered over the mesh
+(:func:`build_local_burst`, :func:`shard_over_subnets`).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from gist_tpu_torch.ist.partition import VIRTUAL_IDX
+from gist_tpu_torch.ist.slicing import _take
 from gist_tpu_torch.models.common import masked_cross_entropy
 from gist_tpu_torch.sampler import ClusterSampler
 from gist_tpu_torch.train.common import make_optimizer
+from gist_tpu_torch.utils import fold_in
 
 Boundaries = list  # per boundary: np.ndarray (K, chunk) or None
 
@@ -159,6 +164,47 @@ def merge_host(params: dict, bnds: Boundaries, stacked: dict,
     return params
 
 
+def subnet_generator(seed: int, s: int, device) -> torch.Generator:
+    """Subnet ``s``'s dropout stream of a round whose seed is ``seed``."""
+    return torch.Generator(device=device).manual_seed(fold_in(seed, s))
+
+
+def _resolve(batch, tables):
+    """(graph, feats, labels, mask) of an inline 4-tuple (``tables``
+    None) or of a ClusterBatch."""
+    if tables is None and isinstance(batch, tuple):
+        return batch
+    return ClusterSampler.resolve_batch(batch, tables)
+
+
+def local_train(model, sub_cfg, sub: dict, batches, lr: float,
+                weight_decay: float, generator: Optional[torch.Generator],
+                tables, feat_idx: Optional[torch.Tensor] = None):
+    """One subnet's burst, on one device or one rank of a mesh: a fresh
+    Adam at ``lr``, one step per batch, trained in place; ``feat_idx``
+    selects the subnet's input columns (``split_input``).  Returns
+    (sub, losses) with the losses on the device."""
+    leaves = [t for layer in sub["layers"] for t in layer.values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = make_optimizer(leaves, lr, weight_decay)
+    losses = []
+    for batch in batches:
+        graph, feats, labels, mask = _resolve(batch, tables)
+        if feat_idx is not None:
+            feats = _take(feats, feat_idx, 1)
+        opt.zero_grad(set_to_none=True)
+        logits = model.apply(sub, graph, feats, sub_cfg, train=True,
+                             generator=generator)
+        loss = masked_cross_entropy(logits, labels, mask)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    for t in leaves:
+        t.requires_grad_(False)
+    return sub, torch.stack(losses)
+
+
 def build_local_burst_single(model, sub_cfg, *, weight_decay: float):
     """Sequential-subnet burst (``gist_tpu/ist/ultrawide.py:230``):
     ``burst(sub, batches, lr, generator, tables) -> (sub, losses)``.
@@ -170,23 +216,43 @@ def build_local_burst_single(model, sub_cfg, *, weight_decay: float):
     ``generator``.  Losses stay on the device (no synchronisation)."""
 
     def burst(sub, batches, lr, generator, tables):
-        leaves = [t for layer in sub["layers"] for t in layer.values()]
-        for t in leaves:
-            t.requires_grad_(True)
-        opt = make_optimizer(leaves, lr, weight_decay)
-        losses = []
-        for batch in batches:
-            graph, feats, labels, mask = ClusterSampler.resolve_batch(
-                batch, tables)
-            opt.zero_grad(set_to_none=True)
-            logits = model.apply(sub, graph, feats, sub_cfg, train=True,
-                                 generator=generator)
-            loss = masked_cross_entropy(logits, labels, mask)
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
-        for t in leaves:
-            t.requires_grad_(False)
-        return sub, torch.stack(losses)
+        return local_train(model, sub_cfg, sub, batches, lr, weight_decay,
+                           generator, tables)
 
     return burst
+
+
+def build_local_burst(model, sub_cfg, *, mesh, weight_decay: float):
+    """The ``subnet`` mesh's burst (``gist_tpu/ist/ultrawide.py:186``):
+    ``burst(sub, batches, lr, seed, tables) -> (stacked, losses)``.
+
+    ``sub`` is this rank's shard (:func:`shard_over_subnets`), trained
+    in place as the sequential burst trains one, with dropout from the
+    subnet's stream of the round's ``seed``
+    (:func:`subnet_generator`); then every
+    rank's trained shard is gathered: ``stacked`` holds them on a
+    leading (K,) axis on this rank's device, ``losses`` is (K, steps)."""
+    from gist_tpu_torch.parallel import comm
+    s = mesh.get_local_rank("subnet")
+    group = mesh.get_group("subnet")
+    device = comm.mesh_device(mesh)
+
+    def burst(sub, batches, lr, seed, tables):
+        sub, losses = local_train(model, sub_cfg, sub, batches, lr,
+                                  weight_decay,
+                                  subnet_generator(seed, s, device), tables)
+        return (comm.all_gather_tree(sub, group),
+                comm.all_gather_stack(losses, group))
+
+    return burst
+
+
+def shard_over_subnets(mesh, stacked_np: dict) -> dict:
+    """This rank's shard of the host-stacked shards (leading (K,) axis),
+    as tensors on its device."""
+    from gist_tpu_torch.parallel import comm
+    s = mesh.get_local_rank("subnet")
+    device = comm.mesh_device(mesh)
+    return {"layers": [
+        {k: torch.tensor(v[s], device=device) for k, v in layer.items()}
+        for layer in stacked_np["layers"]]}

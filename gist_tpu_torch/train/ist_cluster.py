@@ -9,10 +9,15 @@ turn: dispatch, a fresh Adam and one step per batch
 merged into the full-width model, which is evaluated on the full graph
 at the ``len(sampler)`` step cadence of the JAX trainer.
 
-The JAX trainer runs the K subnets side by side over a ``subnet`` mesh
-and gathers their shards with one ``all_gather``; the subnets' steps are
-independent, so the loop over subnets computes the same round.  The mesh
-(NCCL over several cards) waits for the distributed slice of the port.
+With ``mesh`` (a ``subnet`` mesh of K ranks,
+:func:`gist_tpu_torch.ist.distributed.make_subnet_mesh`) the K subnets
+train side by side, one a rank, and one all_gather of their shards
+feeds the merge (:func:`gist_tpu_torch.ist.distributed.build_ist_round`),
+as in the JAX trainer; every rank runs the sampler and the partitions,
+rank 0 evaluates and saves, and every rank returns rank 0's results.
+The subnets' steps are independent and subnet s draws its dropout from
+the round seed's stream s in both modes, so the loop and the mesh
+compute the same round.
 
 ``lsgd=True`` is the local-SGD baseline, run the same way as a loop on
 one device: no boundary is split, so each of the K workers trains a
@@ -42,11 +47,14 @@ import torch
 from gist_tpu_torch.convert import params_from_jax
 from gist_tpu_torch.data.container import Dataset
 from gist_tpu_torch.graph import graph_from_edges
+from gist_tpu_torch.ist.distributed import build_ist_round
 from gist_tpu_torch.ist.partition import boundary_sizes, sample_boundaries
 from gist_tpu_torch.ist.slicing import dispatch, merge, stack
-from gist_tpu_torch.ist.ultrawide import build_local_burst_single
+from gist_tpu_torch.ist.ultrawide import (build_local_burst_single,
+                                          subnet_generator)
 from gist_tpu_torch.models import gat, gcn, sage
 from gist_tpu_torch.models.common import masked_accuracy, micro_f1
+from gist_tpu_torch.parallel import comm
 from gist_tpu_torch.sampler import (ClusterBatch, ClusterSampler,
                                     bucket_size, unify_tile_buckets)
 from gist_tpu_torch.train.checkpoint import (generator_state,
@@ -55,7 +63,7 @@ from gist_tpu_torch.train.checkpoint import (generator_state,
                                              restore_generator,
                                              save_checkpoint)
 from gist_tpu_torch.train.common import TrainConfig, reference_lr_schedule
-from gist_tpu_torch.utils import resolve_device
+from gist_tpu_torch.utils import draw_seed, resolve_device
 
 
 def _batches_to_device(batches: List[ClusterBatch],
@@ -131,12 +139,16 @@ def train_ist_cluster(
     hands the model precomputed first-layer features (SAGE with a
     ``use_pp`` config).  ``init_params`` (a numpy parameter tree, e.g.
     the JAX package's ``init`` output) replaces the seeded
-    initialisation."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the subnet mesh waits for the distributed slice of the port")
+    initialisation.  ``mesh`` (a ``subnet`` mesh of K ranks on
+    ``device``'s type) trains the subnets one a rank."""
     check_kind(model, kind)
     dev = resolve_device(device)
+    if mesh is not None:
+        if mesh.device_type != torch.device(device).type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the run "
+                             f"asks for {device}")
+        dev = comm.mesh_device(mesh)
+    rank0 = mesh is None or mesh.get_local_rank("subnet") == 0
     K = tc.num_subnet
     if normalize:
         ds.normalize_features()
@@ -168,11 +180,26 @@ def train_ist_cluster(
         sizes = boundary_sizes(model_cfg.in_feats, model_cfg.n_hidden,
                                model_cfg.n_layers, split_input=False,
                                split_output=True)
-    burst = build_local_burst_single(model, sub_cfg,
-                                     weight_decay=tc.weight_decay)
+    if mesh is None:
+        burst = build_local_burst_single(model, sub_cfg,
+                                         weight_decay=tc.weight_decay)
+    else:
+        round_fn = build_ist_round(model, sub_cfg, mesh=mesh, kind=kind,
+                                   num_subnet=K,
+                                   weight_decay=tc.weight_decay,
+                                   split_input=False,
+                                   per_subnet_batches=lsgd)
 
-    # the full graph carries no layout: the eval takes the segment path
+    # the full graph carries no layout: the eval takes the segment path;
+    # under a mesh rank 0 evaluates and hands the accuracies to the rest
     def evaluate(params):
+        if mesh is not None:
+            return comm.broadcast_object(
+                _evaluate(params) if rank0 else None, src=0,
+                group=mesh.get_group("subnet"))
+        return _evaluate(params)
+
+    def _evaluate(params):
         with torch.no_grad():
             logits = model.apply(params, full_graph, fx, model_cfg,
                                  backend="segment")
@@ -245,18 +272,27 @@ def train_ist_cluster(
                     for b in sample_boundaries(part_gen, sizes, K)]
             lr = reference_lr_schedule(tc.lr, n_rounds, rnd) \
                 if tc.lr_schedule else tc.lr
+            seed = draw_seed(drop_gen)
             t0 = time.time()
-            trained, round_losses = [], []
             spr = tc.iter_per_site
-            for s in range(K):
-                mine = dev_batches[s * spr:(s + 1) * spr] if lsgd \
-                    else dev_batches
-                sub, rl = burst(dispatch(full_params, bnds, s, kind),
-                                mine, lr, drop_gen, tables)
-                trained.append(sub)
-                round_losses.append(rl)
-            full_params = merge(full_params, bnds, stack(trained), K, kind)
-            losses.append(float(torch.stack(round_losses).mean()))
+            per_subnet = [dev_batches[s * spr:(s + 1) * spr] if lsgd
+                          else dev_batches for s in range(K)]
+            if mesh is not None:
+                full_params, rl = round_fn(
+                    full_params, bnds, per_subnet if lsgd else dev_batches,
+                    lr, seed, tables)
+            else:
+                trained, round_losses = [], []
+                for s in range(K):
+                    sub, r = burst(dispatch(full_params, bnds, s, kind),
+                                   per_subnet[s], lr,
+                                   subnet_generator(seed, s, dev), tables)
+                    trained.append(sub)
+                    round_losses.append(r)
+                full_params = merge(full_params, bnds, stack(trained), K,
+                                    kind)
+                rl = torch.stack(round_losses)
+            losses.append(float(rl.mean()))
             wall = time.time() - t0
             total_time += wall
             round_wall.append(wall)
@@ -268,10 +304,10 @@ def train_ist_cluster(
                 val_accs.append(va)
                 test_accs.append(ta)
                 eval_times.append(total_time)   # time-to-accuracy curve
-                if verbose:
+                if verbose and rank0:
                     print(f"round {rnd}/{n_rounds}: loss {losses[-1]:.4f} "
                           f"val {va:.4f}", flush=True)
-                if checkpoint_dir:
+                if checkpoint_dir and rank0:
                     save_checkpoint(
                         os.path.join(checkpoint_dir, f"round_{rnd}"),
                         {"params": full_params, "round": rnd,
@@ -291,7 +327,7 @@ def train_ist_cluster(
         "eval_times": eval_times, "round_wall_s": round_wall,
         "edges_per_batch": edges_per_batch,
     }
-    if verbose:
+    if verbose and rank0:
         print(f"Training Time: {total_time:.4f}", flush=True)
         print(f"Last Val: {val_accs[-1]:.4f}", flush=True)
         print(f"Best Val: {max(val_accs):.4f}", flush=True)

@@ -1,8 +1,13 @@
-"""Ultra-wide IST trainer, sequential mode
-(``gist_tpu/train/ist_ultrawide.py:train_ist_ultrawide``): the
-full-width model lives in host RAM as numpy; the device holds one
-1/K-width sub-model at a time, and the K subnets of a round train one
-after another on it.
+"""Ultra-wide IST trainer (``gist_tpu/train/ist_ultrawide.py:
+train_ist_ultrawide``): the full-width model lives in host RAM as
+numpy; a device holds only 1/K-width sub-models.  Sequential mode
+trains the K subnets of a round one after another on one device; mesh
+mode (``sequential=False``) trains them one a rank of a ``subnet`` mesh
+of K ranks and gathers the trained shards over it, every rank then
+merging them into its host copy.  In mesh mode every rank runs the
+sampler, the partition draws and the merge; rank 0 evaluates and saves,
+and every rank returns rank 0's results.  Each process holds its own
+copy of the dataset and of the full-width params.
 
 With ``checkpoint_dir`` every eval round saves the params, the round
 and the dropout generator's state (:mod:`gist_tpu_torch.train.
@@ -26,11 +31,16 @@ from gist_tpu_torch.convert import params_from_jax, params_to_numpy
 from gist_tpu_torch.data.container import Dataset
 from gist_tpu_torch.graph import graph_from_edges
 from gist_tpu_torch.ist.partition import boundary_sizes
-from gist_tpu_torch.ist.ultrawide import (build_local_burst_single,
+from gist_tpu_torch.ist.distributed import make_subnet_mesh
+from gist_tpu_torch.ist.ultrawide import (build_local_burst,
+                                          build_local_burst_single,
                                           dispatch_host, merge_host,
-                                          sample_boundaries_host)
+                                          sample_boundaries_host,
+                                          shard_over_subnets,
+                                          subnet_generator)
 from gist_tpu_torch.models import gat, sage
 from gist_tpu_torch.models.common import micro_f1
+from gist_tpu_torch.parallel import comm
 from gist_tpu_torch.sampler import ClusterSampler
 from gist_tpu_torch.train.checkpoint import (generator_state,
                                              latest_round_dir,
@@ -41,7 +51,7 @@ from gist_tpu_torch.train.checkpoint import (generator_state,
 from gist_tpu_torch.train.common import TrainConfig
 from gist_tpu_torch.train.ist_cluster import (_batches_to_device,
                                               _RoundCollector, check_kind)
-from gist_tpu_torch.utils import resolve_device
+from gist_tpu_torch.utils import draw_seed, resolve_device
 
 # Above this many activation elements (nodes x hidden width) the eval on
 # the CPU takes the chunked host forward (sage.apply_chunked_host): the
@@ -74,8 +84,11 @@ def train_ist_ultrawide(
     """Train ``model`` (``sage`` with kind "sage", ``gcn`` with kind
     "gcn") with ultra-wide GIST on ``device``.
 
-    Only the sequential mode is ported (``sequential`` None or True);
-    the subnet mesh waits for the distributed slice.  ``use_pp`` hands
+    ``sequential=False`` (or a ``mesh``) trains over a ``subnet`` mesh
+    of K ranks (``mesh`` defaults to one over the initialised process
+    group); ``sequential=None`` means sequential unless a mesh is
+    given.  Subnet s draws its dropout from stream s of the round's seed
+    in both modes, so they train the same model.  ``use_pp`` hands
     the model precomputed first-layer features (SAGE with a ``use_pp``
     config).  ``init_params`` (a numpy parameter tree, e.g. the JAX
     package's ``init`` output) replaces the seeded initialisation.  The
@@ -86,10 +99,6 @@ def train_ist_ultrawide(
     GAT has no ultra-wide mode: the JAX trainer builds every sub-config
     with ``split_input``/``split_output``, which ``GATConfig.sub_config``
     does not take, so ``model=gat`` raises there too."""
-    if mesh is not None or sequential is False:
-        raise NotImplementedError(
-            "the subnet-mesh mode of the ultra-wide trainer waits for the "
-            "distributed slice of the port; use sequential=True")
     if kind not in ("sage", "gcn") or model is gat:
         raise ValueError(
             "the ultra-wide trainer trains SAGE or GCN (kind 'sage' or "
@@ -97,8 +106,17 @@ def train_ist_ultrawide(
             "sub_config takes no split_input/split_output")
     check_kind(model, kind)
     dev = resolve_device(device)
-    eval_dev = torch.device("cpu") if eval_on_cpu else dev
     K = tc.num_subnet
+    if sequential is None:
+        sequential = mesh is None
+    if not sequential:
+        mesh = mesh or make_subnet_mesh(K, device)
+        if mesh.device_type != torch.device(device).type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the run "
+                             f"asks for {device}")
+        dev = comm.mesh_device(mesh)
+    rank0 = sequential or mesh.get_local_rank("subnet") == 0
+    eval_dev = torch.device("cpu") if eval_on_cpu else dev
     if normalize:
         ds.normalize_features()
     sampler = ClusterSampler(ds, psize, batch_size, use_pp=use_pp,
@@ -116,8 +134,12 @@ def train_ist_ultrawide(
     sizes = boundary_sizes(model_cfg.in_feats, model_cfg.n_hidden,
                            model_cfg.n_layers, split_input=False,
                            split_output=True)
-    burst_fn = build_local_burst_single(model, sub_cfg,
-                                        weight_decay=tc.weight_decay)
+    if sequential:
+        burst_fn = build_local_burst_single(model, sub_cfg,
+                                            weight_decay=tc.weight_decay)
+    else:
+        burst_fn = build_local_burst(model, sub_cfg, mesh=mesh,
+                                     weight_decay=tc.weight_decay)
 
     chunked_eval = (kind == "sage" and eval_on_cpu
                     and ds.n_nodes * model_cfg.n_hidden
@@ -125,6 +147,14 @@ def train_ist_ultrawide(
     eval_data = {}
 
     def evaluate(params_np):
+        """(val, test); under a mesh rank 0's, handed to every rank."""
+        if sequential:
+            return _evaluate(params_np)
+        return comm.broadcast_object(
+            _evaluate(params_np) if rank0 else None, src=0,
+            group=mesh.get_group("subnet"))
+
+    def _evaluate(params_np):
         if chunked_eval:
             l = sage.apply_chunked_host(params_np, ds.senders, ds.receivers,
                                         ds.features, model_cfg)
@@ -200,10 +230,10 @@ def train_ist_ultrawide(
         train_time_at_eval.append(total_time)
         val_accs.append(va)
         test_accs.append(ta)
-        if verbose:
+        if verbose and rank0:
             print(f"round {rnd}/{n_rounds}: loss {losses[-1]:.4f} "
                   f"val {va:.4f}", flush=True)
-        if not checkpoint_dir:
+        if not checkpoint_dir or not rank0:
             return
         save_checkpoint(os.path.join(checkpoint_dir, f"round_{rnd}"),
                         {"params": full_params, "round": rnd,
@@ -234,28 +264,45 @@ def train_ist_ultrawide(
         losses.append(float("nan"))
     else:
         batches = collect()
+    next_batches = None
     for rnd in range(start_round, n_rounds):
         t0 = time.time()
         bnds = sample_boundaries_host(host_rng, sizes, K)
+        seed = draw_seed(generator)
         shards_np = dispatch_host(full_params, bnds, K, kind)
         t1 = time.time()
-        trained_list, loss_list, t_prep = [], [], 0.0
-        for s in range(K):
-            sub = {"layers": [
-                {k: torch.tensor(v[s], device=dev) for k, v in l.items()}
-                for l in shards_np["layers"]]}
-            sub, rl = burst_fn(sub, batches, tc.lr, generator, tables)
-            # the next round's host-side batch build overlaps subnet 0's
-            # burst, which the device is still running
-            if s == 0 and rnd + 1 < n_rounds:
+        t_prep = 0.0
+
+        def prep_next():
+            # the next round's host-side batch build; in sequential mode
+            # it overlaps subnet 0's burst, which the device still runs
+            nonlocal next_batches, t_prep
+            if rnd + 1 < n_rounds:
                 tp = time.time()
                 next_batches = collect()
                 t_prep = time.time() - tp
-            trained_list.append(params_to_numpy(sub))
-            loss_list.append(rl.cpu().numpy())
-        trained = {"layers": [
-            {k: np.stack([t["layers"][i][k] for t in trained_list])
-             for k in layer} for i, layer in enumerate(full_params["layers"])]}
+
+        if sequential:
+            trained_list, loss_list = [], []
+            for s in range(K):
+                sub = {"layers": [
+                    {k: torch.tensor(v[s], device=dev) for k, v in l.items()}
+                    for l in shards_np["layers"]]}
+                sub, rl = burst_fn(sub, batches, tc.lr,
+                                   subnet_generator(seed, s, dev), tables)
+                if s == 0:
+                    prep_next()
+                trained_list.append(params_to_numpy(sub))
+                loss_list.append(rl.cpu().numpy())
+            trained = {"layers": [
+                {k: np.stack([t["layers"][i][k] for t in trained_list])
+                 for k in layer}
+                for i, layer in enumerate(full_params["layers"])]}
+        else:
+            stacked, rl = burst_fn(shard_over_subnets(mesh, shards_np),
+                                   batches, tc.lr, seed, tables)
+            trained, loss_list = params_to_numpy(stacked), rl.cpu().numpy()
+            prep_next()
         t3 = time.time()
         full_params = merge_host(full_params, bnds, trained, K, kind)
         if rnd + 1 < n_rounds:
@@ -283,7 +330,7 @@ def train_ist_ultrawide(
         "loadavg_1m": loadavg_1m, "rss_gb": rss_gb,
         "edges_per_batch": edges_per_batch,
     }
-    if verbose:
+    if verbose and rank0:
         print(f"Training Time: {total_time:.4f}", flush=True)
         print(f"Last Val: {val_accs[-1]:.4f}", flush=True)
         print(f"Best Val: {max(val_accs):.4f}", flush=True)

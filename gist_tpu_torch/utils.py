@@ -24,6 +24,19 @@ def resolve_device(device) -> torch.device:
     return d
 
 
+def fold_in(seed: int, index: int) -> int:
+    """A seed for stream ``index`` of ``seed`` (``jax.random.fold_in``'s
+    role): the per-subnet and per-rank generators of one draw."""
+    return (seed * 0x9E3779B97F4A7C15 + index * 0xBF58476D1CE4E5B9
+            + 1) % (1 << 63)
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """One 62-bit seed drawn from ``generator`` (on its device)."""
+    return int(torch.randint(0, 1 << 62, (1,), generator=generator,
+                             device=generator.device).item())
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[str]) -> Iterator[None]:
     """``torch.profiler`` scope over the CPU (and, with a card, CUDA)

@@ -1130,3 +1130,49 @@ def test_full_graph_scan_on_card_matches_loop(cuda, model):
                   for k in (0, 2))
     np.testing.assert_allclose(scan["losses"], loop["losses"], rtol=1e-4)
     assert scan["val_accs"] == loop["val_accs"]
+
+
+def test_sharded_aggregate_through_k1_on_one_rank(cuda, tmp_path):
+    """The sharded aggregation on the card in a one-rank group: the
+    interior dedup layouts are built (``interior_tiles=None`` with a
+    card), K1 runs once forward and once on the transpose layout, and the
+    result and gradient match the flat segment aggregation."""
+    import torch.distributed as dist
+
+    from gist_tpu_torch.parallel import (build_sharded_graph, comm,
+                                         sharded_aggregate)
+    from gist_tpu_torch.parallel.graph_shard import unshard
+
+    rng = np.random.default_rng(0)
+    n = 2000
+    s, r = rng.integers(0, n, 30000), rng.integers(0, n, 30000)
+    x = torch.from_numpy(rng.standard_normal((n, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((n, 64)).astype(np.float32))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        mesh = comm.make_mesh("cuda", (1,), ("graph",))
+        sg = build_sharded_graph(s, r, n, 1)
+        assert sg.int_dedup is not None
+        perm = sg.node_perm.long()
+        xs = torch.zeros((sg.total_rows, 64))
+        xs[perm] = x
+        ws = torch.zeros_like(xs)
+        ws[perm] = w
+        xs = xs.to(cuda).requires_grad_(True)
+        K.launches = 0
+        y = sharded_aggregate(sg, mesh)(xs)
+        (y * ws.to(cuda)).sum().backward()
+        torch.cuda.synchronize()
+        assert K.launches == 2
+    finally:
+        dist.destroy_process_group()
+    g = graph_from_edges(s, r, n)
+    want = spmm_segment(g, x)
+    want_dx = spmm_segment(g.transpose(), w)
+    got = unshard(sg, y.detach().cpu())
+    got_dx = unshard(sg, xs.grad.cpu())
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    torch.testing.assert_close(got_dx, want_dx, rtol=1e-5,
+                               atol=1e-5 * float(want_dx.abs().max()))

@@ -243,9 +243,21 @@ def test_train_ist_cluster_lsgd_and_use_pp_match_jax(kind, lsgd, use_pp,
 def test_train_ist_cluster_unported_modes_raise():
     ds = load_dataset("synth-tiny")
     cfg = tgat.GATConfig(ds.in_feats, 8, ds.n_classes)
-    with pytest.raises(NotImplementedError, match="distributed"):
+    # a subnet mesh needs a process group of K ranks: without one its
+    # build raises, and a mesh on another device type than the run's
+    # is refused, never moved
+    from gist_tpu_torch.ist.distributed import make_subnet_mesh
+    with pytest.raises(RuntimeError, match="torch.distributed"):
+        make_subnet_mesh(2, "cpu")
+
+    class _CudaMesh:
+        device_type = "cuda"
+
+        def get_local_rank(self, name):
+            return 0
+    with pytest.raises(ValueError, match="mesh is on cuda"):
         TIC.train_ist_cluster(ds, cfg, TTC(num_subnet=2), model=tgat,
-                              kind="gat", mesh=object(), device="cpu")
+                              kind="gat", mesh=_CudaMesh(), device="cpu")
     with pytest.raises(ValueError, match="kind"):
         TIC.train_ist_cluster(ds, cfg, TTC(num_subnet=2), model=tgat,
                               kind="gin", device="cpu")
