@@ -10,7 +10,7 @@ drift of the card's clocks falls on both alike.  Each worker builds its
 checkout's kernels, makes the same seeded inputs on the full
 synth-reddit-small v1 graph (the v1 main path's shapes: K3 at F=256 and
 41 forward and transpose, K7-K9 at D=512 and 41 fp32), times each kernel
-through its checkout's public wrapper with ``chip_smoke.py``'s timer
+through its checkout's public wrapper with the port's timer
 (device time per call over back-to-back calls) and prints the SHA-1 of
 each output; the first worker of each checkout also saves its outputs
 to a temporary directory.  K8 and K9 take seeded stand-ins for m, l and
@@ -35,12 +35,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def _timer():
-    """``chip_smoke.py``'s kernel timer, from beside this script."""
+    """The port's kernel timer (``gist_tpu_torch/bench/timing.py``) from
+    this script's checkout, whichever checkout is being timed."""
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke_timer", os.path.join(HERE, "chip_smoke.py"))
+        "bench_timing",
+        os.path.join(HERE, "gist_tpu_torch", "bench", "timing.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod._kernel_ms
+    return mod.kernel_ms
 
 
 def _sha1(tensors):
@@ -79,7 +81,7 @@ def worker(root, save=None):
             torch.save([t.cpu() for t in out],
                        os.path.join(save, f"{kernel} {name}.pt"))
         print(json.dumps({"kernel": kernel, "case": name,
-                          "ms": kernel_ms(torch, fn),
+                          "ms": kernel_ms(fn),
                           "sha1": _sha1(out)}), flush=True)
 
     for f in (256, 41):

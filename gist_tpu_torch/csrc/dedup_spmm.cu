@@ -7,8 +7,10 @@
 //   out[i*TN + r, f] = sum_{j = job_offsets[i]}^{job_offsets[i+1]-1}
 //                      sum_{c < CU} W[j, r, c] * x[u_senders[j*CU + c], f]
 //
-// with TN = 128 rows per tile, CU = 1024 unique-sender slots per job,
-// int8 counts W and an fp32 accumulator; the output is in x's dtype.
+// with TN = 64, 128 or 256 rows per tile (one instance each: the flat
+// layouts take 128, the chunked ones and the benchmarks' tile sweep 64
+// and 256), CU = 1024 unique-sender slots per job, int8 counts W and an
+// fp32 accumulator; the output is in x's dtype.
 //
 // Design: the sparse walk of count_block.cuh (shared with K2): one warp
 // per destination row and 256-column feature slice, eight rows a block,
@@ -39,7 +41,6 @@
 
 namespace {
 
-constexpr int TN = 128;       // destination rows per tile
 constexpr int CU = 1024;      // unique-sender slots per job
 
 // Slot k of job j reads x[u_senders[j*CU + k]].
@@ -50,7 +51,7 @@ struct GatherRows {
   }
 };
 
-template <typename T, int V>
+template <typename T, int TN, int V>
 __global__ void __launch_bounds__(count_block::THREADS)
 dedup_spmm_kernel(const int32_t* __restrict__ job_offsets,
                   const int8_t* __restrict__ w_blocks,
@@ -63,53 +64,70 @@ dedup_spmm_kernel(const int32_t* __restrict__ job_offsets,
                                        slices);
 }
 
-template <typename T, int V>
+template <typename T, int TN, int V>
 void launch_vec(const void* job_offsets, const void* w_blocks,
                 const void* u_senders, const void* x, void* out,
                 int blocks, int f, int slices, cudaStream_t stream) {
-  dedup_spmm_kernel<T, V><<<blocks, count_block::THREADS, 0, stream>>>(
+  dedup_spmm_kernel<T, TN, V><<<blocks, count_block::THREADS, 0, stream>>>(
       static_cast<const int32_t*>(job_offsets),
       static_cast<const int8_t*>(w_blocks),
       static_cast<const int32_t*>(u_senders), static_cast<const T*>(x),
       static_cast<T*>(out), f, slices);
 }
 
+template <typename T, int TN>
+void launch_tn(const void* job_offsets, const void* w_blocks,
+               const void* u_senders, const void* x, void* out, int num_tiles,
+               int f, cudaStream_t s) {
+  const count_block::Plan p = count_block::plan<T>(f, x);
+  const int blocks = num_tiles * (TN / count_block::WARPS) * p.slices;
+  if (p.vec == 4)
+    launch_vec<T, TN, 4>(job_offsets, w_blocks, u_senders, x, out, blocks, f,
+                         p.slices, s);
+  else if (p.vec == 2)
+    launch_vec<T, TN, 2>(job_offsets, w_blocks, u_senders, x, out, blocks, f,
+                         p.slices, s);
+  else
+    launch_vec<T, TN, 1>(job_offsets, w_blocks, u_senders, x, out, blocks, f,
+                         p.slices, s);
+}
+
 template <typename T>
 int launch(const void* job_offsets, const void* w_blocks,
            const void* u_senders, const void* x, void* out, int num_tiles,
-           int f, void* stream) {
+           int f, int tn, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (tn != 64 && tn != 128 && tn != 256) return (int)cudaErrorInvalidValue;
   if (num_tiles > 0 && f > 0) {
-    const count_block::Plan p = count_block::plan<T>(f, x);
-    const int blocks = num_tiles * (TN / count_block::WARPS) * p.slices;
-    const cudaStream_t s = (cudaStream_t)stream;
-    if (p.vec == 4)
-      launch_vec<T, 4>(job_offsets, w_blocks, u_senders, x, out, blocks, f,
-                       p.slices, s);
-    else if (p.vec == 2)
-      launch_vec<T, 2>(job_offsets, w_blocks, u_senders, x, out, blocks, f,
-                       p.slices, s);
+    if (tn == 64)
+      launch_tn<T, 64>(job_offsets, w_blocks, u_senders, x, out, num_tiles, f,
+                       s);
+    else if (tn == 128)
+      launch_tn<T, 128>(job_offsets, w_blocks, u_senders, x, out, num_tiles,
+                        f, s);
     else
-      launch_vec<T, 1>(job_offsets, w_blocks, u_senders, x, out, blocks, f,
-                       p.slices, s);
+      launch_tn<T, 256>(job_offsets, w_blocks, u_senders, x, out, num_tiles,
+                        f, s);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes).  out is (num_tiles * 128, f)
-// in x's dtype, allocated by the caller; w_blocks is 16-byte aligned;
-// returns cudaGetLastError().
+// Plain C interface (loaded with ctypes).  w_blocks is (jobs, tn, 1024)
+// int8, 16-byte aligned; out is (num_tiles * tn, f) in x's dtype,
+// allocated by the caller.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a tn without an instance.
 extern "C" int dedup_spmm_f32(const void* job_offsets, const void* w_blocks,
                               const void* u_senders, const void* x, void* out,
-                              int num_tiles, int f, void* stream) {
+                              int num_tiles, int f, int tn, void* stream) {
   return launch<float>(job_offsets, w_blocks, u_senders, x, out, num_tiles, f,
-                       stream);
+                       tn, stream);
 }
 
 extern "C" int dedup_spmm_bf16(const void* job_offsets, const void* w_blocks,
                                const void* u_senders, const void* x, void* out,
-                               int num_tiles, int f, void* stream) {
+                               int num_tiles, int f, int tn, void* stream) {
   return launch<__nv_bfloat16>(job_offsets, w_blocks, u_senders, x, out,
-                               num_tiles, f, stream);
+                               num_tiles, f, tn, stream);
 }

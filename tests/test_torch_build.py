@@ -218,3 +218,16 @@ def test_b1_keeps_g_r_in_registers():
     assert re.search(r"\bg\s*[+\[]", walk) is None
     assert "cols.dot(zs + (int64_t)sk * d, gr)" in walk
     assert "warp_sum(" not in body
+
+
+def test_k1_instances_match_tile_sizes():
+    """K1's source has one instance per tile size the wrapper accepts
+    (``dedup_spmm.TILE_SIZES``) and refuses any other."""
+    text = _read(dedup_spmm.SOURCE)
+    launch = _body(text, "launch")
+    sizes = sorted({int(m) for m in re.findall(r"launch_tn<T, (\d+)>",
+                                               launch)})
+    assert tuple(sizes) == dedup_spmm.TILE_SIZES
+    guard = re.search(r"if \((tn != \d+(?: && tn != \d+)*)\)", launch)
+    assert guard and sorted(int(v) for v in re.findall(
+        r"\d+", guard.group(1))) == sizes

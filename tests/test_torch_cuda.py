@@ -128,6 +128,37 @@ def test_kernel_matches_plain(cuda, case, dtype, f):
         assert torch.all(got[128:] == 0)
 
 
+@pytest.mark.parametrize("tn", [64, 256])
+@pytest.mark.parametrize("case", ["several_tiles", "multi_job",
+                                  "empty_tiles"])
+@pytest.mark.parametrize("dtype,f", [(torch.float32, 602),
+                                     (torch.float32, 37),
+                                     (torch.bfloat16, 100)])
+def test_kernel_tile_sizes_match_plain(cuda, tn, case, dtype, f):
+    """K1 at the tile sizes of the chunked layouts and of the tile sweep
+    (TN 64 and 256) against its plain walk: 1e-5 relative to the plain
+    result's max in fp32 (1e-2 bf16), (num_tiles * TN, F) rows, two
+    launches bitwise equal, rows of tiles without jobs zero."""
+    rng = np.random.default_rng(tn)
+    s, r, n = _edges(case, rng)
+    d = _build_dedup_tiles(s, r, n, tile_rows=tn, reorder=False)
+    d = pad_dedup_tiles(d, int(d.w_blocks.shape[0]) + 3, d.max_jobs + 1)
+    d = d.to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32))
+    x = x.to(dtype).to(cuda)
+    before = K.launches
+    got = K.dedup_spmm(d.job_offsets, d.w_blocks, d.u_senders, x)
+    again = K.dedup_spmm(d.job_offsets, d.w_blocks, d.u_senders, x)
+    torch.cuda.synchronize()
+    assert K.launches == before + 2
+    assert got.shape == (d.num_tiles * tn, f) and torch.equal(got, again)
+    want = K.dedup_spmm_reference(d.job_offsets, d.w_blocks, d.u_senders,
+                                  x)
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
+    if case == "empty_tiles":      # receivers below 100 only
+        assert torch.all(got[-(-100 // tn) * tn:] == 0)
+
+
 def test_aggregate_grad_runs_kernel(cuda):
     rng = np.random.default_rng(1)
     s, r, n = _edges("several_tiles", rng)
@@ -162,9 +193,10 @@ def test_kernel_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         K.dedup_spmm(d.job_offsets, d.w_blocks, d.u_senders,
                      torch.ones((8, n), device=cuda).t())
-    d64 = _build_dedup_tiles(s, r, n, tile_rows=64, reorder=False).to(cuda)
+    # TN 64, 128 and 256 have instances; 32-row tiles have none
+    d32 = _build_dedup_tiles(s, r, n, tile_rows=32, reorder=False).to(cuda)
     with pytest.raises(ValueError):
-        K.dedup_spmm(d64.job_offsets, d64.w_blocks, d64.u_senders, x)
+        K.dedup_spmm(d32.job_offsets, d32.w_blocks, d32.u_senders, x)
 
 
 # --- K4-K6: the dedup GAT attention ---------------------------------------

@@ -165,9 +165,11 @@ def test_kernel_wrapper_rejects_unsupported_input(rng):
         K._check(d.job_offsets, d.w_blocks, d.u_senders, x.double())
     with pytest.raises(ValueError):
         K._check(d.job_offsets, d.w_blocks, d.u_senders, x[:, 0])
-    d64 = TG._build_dedup_tiles(s, r, n, tile_rows=64, reorder=False)
+    # K1 has instances for TN 64, 128 and 256; a layout of 32-row tiles
+    # has none
+    d32 = TG._build_dedup_tiles(s, r, n, tile_rows=32, reorder=False)
     with pytest.raises(ValueError):
-        K._check(d64.job_offsets, d64.w_blocks, d64.u_senders, x)
+        K._check(d32.job_offsets, d32.w_blocks, d32.u_senders, x)
     with pytest.raises(ValueError):
         K.dedup_spmm(d.job_offsets.to("meta"), d.w_blocks.to("meta"),
                      d.u_senders.to("meta"), x.to("meta"))
