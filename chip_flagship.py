@@ -22,21 +22,22 @@ the newest checkpoint.  Needs a card; it imports no JAX.
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
+
+from gist_tpu_torch.bench.procs import run_child
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def _run(cmd, **kw):
     t0 = time.time()
-    subprocess.run(cmd, check=True, cwd=HERE, **kw)
+    run_child(cmd, check=True, cwd=HERE, **kw)
     return time.time() - t0
 
 
 def _text(cmd):
-    return subprocess.run(cmd, capture_output=True, text=True).stdout.strip()
+    return run_child(cmd, 60, capture_output=True, text=True).stdout.strip()
 
 
 def main(argv=None):

@@ -32,7 +32,7 @@ raising on failure:
 10. split kernels: K2 against its plain version on the
     synth-amazon2m-small split layouts (TN 64, threshold 128, CU 1024
     and 512), forward and transpose, F=100 fp32 and bf16 and F=47 fp32,
-    with times;
+    with times (the plain walk timed once, as it is checked);
 11. split path: one GCN h256 training step through K2 on the split
     layouts and through K1 per chunk on the chunked layouts of the same
     graph must agree, counting K2 launches;
@@ -65,16 +65,18 @@ raising on failure:
     GAT h512 (K7-K9) and with GCN h256 (K3), counting launches; each
     again under ``torch.profiler`` for its device time per epoch;
 17. uw_resume (run after phase 6): the main path's configuration with
-    a checkpoint each round, 3 rounds uninterrupted, then 2 rounds into
-    a fresh directory resumed to 3; the resumed tail's losses and val F1
-    must equal the uninterrupted run's within 1e-5 relative, K1 9
-    launches a step in every run;
+    a checkpoint each round, 2 rounds uninterrupted, then 1 round into
+    a fresh directory resumed to 2 (3, 2 and 3 before, cut to keep the
+    script's time); the resumed call returns the whole run, whose
+    first round reads back as the cut run recorded it and whose losses
+    and val F1 must equal the uninterrupted run's within 1e-5 relative,
+    K1 9 launches a step trained in every run;
 18. uw_cli_chunked_eval (run last): ``python -m
     gist_tpu_torch.cli.ist_distrib --ultra-wide`` as a function, SAGE
-    h2048, 4 hidden layers, K=8, 1 round of 10 steps a subnet on
-    synth-reddit (psize 100, batch 10: K1 on every batch, 9 launches a
-    step; 2 rounds of 5 before, cut to one chunked eval to keep the
-    script's total near 900 s) with a checkpoint and the chunked host
+    h2048, 2 hidden layers (4 before, cut to keep the script's time),
+    K=8, 1 round of 10 steps a subnet on synth-reddit (psize 100, batch
+    10: K1 on every batch, 5 launches a step; 2 rounds of 5 before) with
+    a checkpoint and the chunked host
     eval; then ``cli.infer`` on the last round on the
     card, and the chunked host forward of the same params held against
     the card's logits at rtol = atol = 0.05, with both walls, the
@@ -148,7 +150,10 @@ raising on failure:
     (1e-5), the round-mean losses of the run and of the same run repeated
     within 4e-5 (round 1) and 1e-3 (round 2: Adam's steps amplify
     last-bit differences, and the run differs from itself as much), and
-    a bf16-halo control that reads over round 1's bar.
+    a bf16-halo control that reads over round 1's bar.  Then, once,
+    ``gist_tpu_torch/bench/ist_sharded_2d.py:run`` on the same 2 x 2
+    mesh: its 2-D run (K1 80 a rank) against its 1-D control within the
+    same bars, both curves printed.
 30. bench (run right after the build phase): every launch count set to
     0, ``python3 bench_torch.py`` in a subprocess from the checkout's
     root (one JSON line: every JAX bench key but those not carried over,
@@ -166,8 +171,38 @@ raising on failure:
     step's first step through K1 against the segment path, K4 at D=128,
     K1 on the TN-64 chunked layout, and the graft entry's forward.
 
+31. fullscale_scripts (run after phase 26, on its graph): the
+    full-scale benchmark scripts of ``gist_tpu_torch/bench/`` called in
+    this process at the JAX widths on graphs held here, their launches
+    counted together: ``amazon_spmm`` on synth-amazon2m-small (F=100, TN
+    64, 2^13 slots a chunk) at threshold 0 (K1 once per chunk) and 128
+    (K2 once per chunk), each at CU 512 and 1024, against its plain walk
+    and the segment path over the whole output (1e-5 each);
+    ``gat_chunked`` on phase 12's synth-reddit graph (K4 once per chunk,
+    D=128, 2 heads), its zero-score attention against K1 once per chunk
+    times 1/in_deg (1e-5); ``uw_k1_probe`` at h2048 on
+    synth-amazon2m-small (psize 50, batch 10), 3 rounds of 5 steps;
+    ``amazon_uw_fullscale`` at h512, K=8 there: 1 round, then a rerun
+    with the same key to 2, which must resume after round 1 (it trains
+    round 2 only; round 1's loss and val F1 stay as the first call wrote
+    them); ``cluster_fullscale`` for 1 epoch there (psize 50) against a
+    direct ``train_cluster_gcn`` call with the same config and seed
+    (losses 1e-5).  Those two evaluate on the card, not on the host as
+    the scripts do at full length.  ``ist_sharded_2d`` runs through
+    phase 29.
+
 Replayed outputs are held against the plain versions at 1e-5 relative to
 the plain result's max, after the outputs were overwritten with NaN.
+
+Before the kernel summary line the script waits up to 10 s for every
+process it started to end (``gist_tpu_torch/bench/procs.py:
+descendants``), prints ``{"phase": "processes", "left": [...]}`` and
+exits non-zero, after killing them, if any remains.  Every child goes
+through ``procs.run_child``/``run_children``, which end its whole
+process group; the ranks of phases 27-29 are spawned and joined by
+``torch.multiprocessing``, and the ``spawn`` context's resource tracker,
+which would otherwise live until this process exits, is stopped
+explicitly before the check (``multiprocessing.resource_tracker``).
 
 Kernel and library times: ``ms`` is device time per call, one CUDA
 event pair around back-to-back calls queued ahead of the card
@@ -186,12 +221,13 @@ import json
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import time
 
 # the package beside this script; without it the script stops here
-from gist_tpu_torch.bench.common import (bound, k1_bound, launch_counts,
+from gist_tpu_torch.bench import procs
+from gist_tpu_torch.bench.common import (bound, chunked_bound, chunked_plain,
+                                         k1_bound, launch_counts,
                                          reset_launch_counts)
 from gist_tpu_torch.bench.timing import call_ms, kernel_ms
 
@@ -203,9 +239,10 @@ def emit(obj):
 
 
 def phase_device(torch):
-    out = subprocess.run(
+    out = procs.run_child(
         ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+         "--format=csv,noheader"], 60, capture_output=True, text=True,
+        check=True)
     print(out.stdout.strip(), flush=True)
     return {"name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
@@ -213,25 +250,25 @@ def phase_device(torch):
 
 
 def phase_build():
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per kernel source, all started together; every one is
+    waited for (``procs.run_children``) before the first failure
+    raises."""
     from gist_tpu_torch.ops import (dedup_spmm, gat_dedup, gat_tiled,
                                     split_spmm, tiled_spmm)
     modules = [dedup_spmm, gat_dedup, split_spmm, tiled_spmm, gat_tiled]
     os.makedirs(dedup_spmm.BUILD_DIR, exist_ok=True)
     t0 = time.time()
-    procs = []
-    for mod in modules:
-        lib = dedup_spmm.library_path(mod.SOURCE)
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        procs.append((mod, lib, tmp, subprocess.Popen(
-            dedup_spmm.build_command(tmp, mod.SOURCE), stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)))
-    for mod, lib, tmp, p in procs:
-        _, err = p.communicate()
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed for {mod.SOURCE}:\n{err}")
+    libs = [dedup_spmm.library_path(mod.SOURCE) for mod in modules]
+    tmps = [f"{lib}.{os.getpid()}.tmp" for lib in libs]
+    done = procs.run_children(
+        [dedup_spmm.build_command(tmp, mod.SOURCE)
+         for mod, tmp in zip(modules, tmps)], timeout=900,
+        capture_output=True, text=True)
+    for mod, lib, tmp, res in zip(modules, libs, tmps, done):
+        if res.returncode:
+            raise RuntimeError(f"nvcc failed for {mod.SOURCE}:\n{res.stderr}")
         os.replace(tmp, lib)
-        entries = _ptxas_entries(err)
+        entries = _ptxas_entries(res.stderr)
         emit({"phase": "build", "source": os.path.relpath(mod.SOURCE, HERE),
               "instances": len(entries),
               "registers": sorted({r for _, r, _ in entries}),
@@ -602,10 +639,12 @@ def _rel_diff(a, b):
 def phase_uw_resume(torch, ds):
     """Checkpoint and resume on the card: the SAGE main path's
     configuration with an eval on the card every round and a checkpoint
-    each; 3 rounds uninterrupted, then 2 rounds into a fresh directory
-    and that directory resumed to 3.  The cut run and the resumed tail
-    must equal the uninterrupted run within 1e-5 relative (K1 sums in a
-    fixed order); every run launches K1 9 times a step."""
+    each; 2 rounds uninterrupted, then 1 round into a fresh directory
+    and that directory resumed to 2 (3, 2 and 3 before).  The resumed
+    call returns the whole run: its first round must read back as the
+    cut run recorded it, and the whole must equal the uninterrupted run
+    within 1e-5 relative (K1 sums in a fixed order); every run launches
+    K1 9 times a step it trains."""
     import dataclasses
     import tempfile
 
@@ -622,6 +661,9 @@ def phase_uw_resume(torch, ds):
         nonlocal launches
         tc = TrainConfig(lr=1e-2, weight_decay=0.0, n_epochs=n_epochs,
                          num_subnet=8, iter_per_site=5)
+        last = latest_round_dir(ck)
+        start = 0 if last is None else int(
+            os.path.basename(last).split("_")[1]) + 1
         K.launches = 0
         t0 = time.time()
         r = train_ist_ultrawide(dataclasses.replace(ds), cfg, tc, psize=50,
@@ -630,7 +672,8 @@ def phase_uw_resume(torch, ds):
                                 verbose=False, device="cuda")
         torch.cuda.synchronize()
         r["wall_s"] = time.time() - t0
-        steps = len(r["round_wall_s"]) * tc.num_subnet * tc.iter_per_site
+        steps = (len(r["round_wall_s"]) - start) * tc.num_subnet \
+            * tc.iter_per_site
         if K.launches != 9 * steps:
             raise RuntimeError(f"K1 launched {K.launches} times in "
                                f"{steps} steps, want 9 per step")
@@ -639,15 +682,16 @@ def phase_uw_resume(torch, ds):
         return r
 
     with tempfile.TemporaryDirectory() as tmp:
-        full = run(24, os.path.join(tmp, "full"))
+        full = run(16, os.path.join(tmp, "full"))
         ck = os.path.join(tmp, "cut")
-        cut = run(16, ck)
-        if os.path.basename(latest_round_dir(ck) or "") != "round_1":
-            raise RuntimeError("the cut run left no round_1 checkpoint")
-        resumed = run(24, ck)
-    loss_diff = _rel_diff(cut["losses"] + resumed["losses"], full["losses"])
-    f1_diff = _rel_diff(cut["val_accs"] + resumed["val_accs"],
-                        full["val_accs"])
+        cut = run(8, ck)
+        if os.path.basename(latest_round_dir(ck) or "") != "round_0":
+            raise RuntimeError("the cut run left no round_0 checkpoint")
+        resumed = run(16, ck)
+    loss_diff = _rel_diff(resumed["losses"], full["losses"])
+    f1_diff = _rel_diff(resumed["val_accs"], full["val_accs"])
+    read_back = (resumed["losses"][:1] == cut["losses"]
+                 and resumed["val_accs"][:1] == cut["val_accs"])
     row = {"phase": "uw_resume", "rounds": [len(full["losses"]),
                                             len(cut["losses"]),
                                             len(resumed["losses"])],
@@ -655,7 +699,8 @@ def phase_uw_resume(torch, ds):
            "resumed_losses": resumed["losses"], "val_f1": full["val_accs"],
            "resumed_val_f1": resumed["val_accs"],
            "loss_rel_diff": loss_diff, "val_f1_rel_diff": f1_diff,
-           "tol": 1e-5, "k1_launches": launches,
+           "tol": 1e-5, "cut_round_read_back": read_back,
+           "k1_launches": launches,
            "k1_launches_by_run": [full["k1_launches"], cut["k1_launches"],
                                   resumed["k1_launches"]],
            "wall_s": [full["wall_s"], cut["wall_s"], resumed["wall_s"]],
@@ -664,8 +709,11 @@ def phase_uw_resume(torch, ds):
            "resumed_round_wall_s": resumed["round_wall_s"]}
     emit(row)
     if [len(full["losses"]), len(cut["losses"]),
-            len(resumed["losses"])] != [3, 2, 1]:
-        raise RuntimeError(f"expected 3, 2 and 1 rounds: {row['rounds']}")
+            len(resumed["losses"])] != [2, 1, 2]:
+        raise RuntimeError(f"expected 2, 1 and 2 rounds: {row['rounds']}")
+    if not read_back:
+        raise RuntimeError("the resumed run's record lost the cut run's "
+                           "round")
     if not (loss_diff <= 1e-5 and f1_diff <= 1e-5):
         raise RuntimeError("the resumed run left the uninterrupted one")
     if not all(v == v and abs(v) < float("inf")
@@ -674,9 +722,14 @@ def phase_uw_resume(torch, ds):
     return launches
 
 
+# Phase 18's depth: 2 hidden layers (4 before), which halves
+# its chunked host eval, the script's largest single cost.
+UW_CLI_LAYERS = 2
+
+
 def phase_uw_cli_chunked_eval(torch, device):
     """The entry point and the serving path: ``cli.ist_distrib
-    --ultra-wide`` trains SAGE h2048 (4 hidden layers, K=8) for 1 round
+    --ultra-wide`` trains SAGE h2048 (2 hidden layers, K=8) for 1 round
     on synth-reddit with a checkpoint; N x h is over the trainer's
     threshold, so each eval runs the chunked host forward (its output is
     kept as it returns).  Then ``cli.infer`` evaluates the last round on
@@ -700,7 +753,7 @@ def phase_uw_cli_chunked_eval(torch, device):
                                                  params_to_host)
 
     model = ["--dataset", "synth-reddit", "--n-hidden", "2048",
-             "--n-layers", "4", "--normalize", "--use-f1"]
+             "--n-layers", str(UW_CLI_LAYERS), "--normalize", "--use-f1"]
     chunked, real = [], sage.apply_chunked_host
 
     def keep(*args, **kw):
@@ -738,7 +791,8 @@ def phase_uw_cli_chunked_eval(torch, device):
                            f"want one a round")
     host = chunked[-1]
     ds = load_dataset("synth-reddit").normalize_features()
-    cfg = sage.SAGEConfig(ds.in_feats, 2048, ds.n_classes, n_layers=4)
+    cfg = sage.SAGEConfig(ds.in_feats, 2048, ds.n_classes,
+                          n_layers=UW_CLI_LAYERS)
     graph = graph_from_edges(ds.senders, ds.receivers, ds.n_nodes).to(device)
     x = torch.from_numpy(ds.features).to(device)
     p_dev = params_from_jax(params, device)
@@ -753,7 +807,7 @@ def phase_uw_cli_chunked_eval(torch, device):
     del graph, x, p_dev
     err = np.abs(host - card)
     excess = float((err / (0.05 + 0.05 * np.abs(card))).max())
-    nproc = subprocess.run(["nproc"], capture_output=True, text=True)
+    nproc = procs.run_child(["nproc"], 60, capture_output=True, text=True)
     row = {"phase": "uw_cli_chunked_eval", "nodes": ds.n_nodes,
            "edges": ds.n_edges,
            "activation_elements": ds.n_nodes * 2048,
@@ -782,9 +836,12 @@ def phase_uw_cli_chunked_eval(torch, device):
                            "chunked eval")
     if len(r["losses"]) != 1:
         raise RuntimeError(f"expected 1 round with an eval: {row}")
-    if launches != 9 * steps:
-        raise RuntimeError(f"K1 launched {launches} times, want 9 per step "
-                           f"({9 * steps})")
+    # K1 a step: a forward aggregation a weight layer (n_layers + 1),
+    # the same on the transpose but for layer 0's input
+    per_step = 2 * UW_CLI_LAYERS + 1
+    if launches != per_step * steps:
+        raise RuntimeError(f"K1 launched {launches} times, want {per_step} "
+                           f"per step ({per_step * steps})")
     if not all(e >= TILES_MIN_EDGES for e in r["edges_per_batch"]):
         raise RuntimeError("a batch fell under the layout's edge threshold")
     if not (np.isfinite(host).all() and np.isfinite(card).all()
@@ -1377,35 +1434,6 @@ def phase_gat_main_path(torch, ds):
     return launches
 
 
-def _split_bound(torch, t, x, n_out_rows):
-    """Least time for K2 over every chunk of ``t``: W, the per-job arrays
-    and the remote ids of the real jobs, the offsets, every feature row
-    read once and every output row written once, against the useful
-    multiply-adds of W's nonzero counts."""
-    f, item = x.shape[1], x.element_size()
-    real = t.job_offsets[:, -1].tolist()
-    nbytes = t.job_offsets.numel() * 4 + x.numel() * item \
-        + n_out_rows * f * item
-    nnz = 0
-    for c, jobs in enumerate(real):
-        rem_jobs = jobs - int(t.is_dir[c, :jobs].sum())
-        nbytes += jobs * (t.tile_rows * t.cu + 12) + rem_jobs * t.cu * 4
-        nnz += int(torch.count_nonzero(t.w_blocks[c, :jobs]))
-    flops = 2 * nnz * f
-    return bound(nbytes, flops, x.dtype) + (nbytes, flops)
-
-
-def _chunked_bytes_nnz(torch, t):
-    """W, slots and offsets of the real jobs of every chunk, and W's
-    nonzero counts."""
-    nbytes = t.job_offsets.numel() * 4
-    nnz = 0
-    for c, jobs in enumerate(t.job_offsets[:, -1].tolist()):
-        nbytes += jobs * (t.tile_rows * t.cu + t.cu * 4)
-        nnz += int(torch.count_nonzero(t.w_blocks[c, :jobs]))
-    return nbytes, nnz
-
-
 def _split_layouts(g, cu):
     """The split layout pair of ``g`` at the amazon bench's settings
     (TN 64, threshold 128, 2^21 remote rows per chunk) and its build
@@ -1426,7 +1454,8 @@ def phase_split_kernels(torch, device, g):
     """K2 against its plain version on the synth-amazon2m-small split
     layouts (CU 1024 and 512), forward and transpose, F=100 in fp32 and
     bf16 and F=47 (the split path's layer-1 width) in fp32: every chunk
-    in one pass, with times beside the plain walk's and
+    in one pass, with times beside the plain walk's (the one call that
+    is checked) and
     one ``torch.sparse.mm`` on the node-order adjacency.  Returns the
     rows and the CU=1024 layout pair (host tensors) for the split-path
     phase."""
@@ -1475,15 +1504,15 @@ def phase_split_kernels(torch, device, g):
                 def plain():
                     return torch.cat([K2.split_spmm_reference(*lay_c, xp)
                                       for *lay_c, _ in chunks])
-                got, want = kernel(), plain()
-                torch.cuda.synchronize()
+                got = kernel()
+                want, plain_ms = _timed(torch, plain)
                 if not torch.isfinite(got.float()).all():
                     raise RuntimeError("K2 output is not finite")
                 abs_err = float((got.float() - want.float()).abs().max())
                 rel_err = abs_err / float(want.float().abs().max())
                 tol = 1e-5 if dtype == torch.float32 else 1e-2
-                bound_ms, bound_by, nbytes, flops = _split_bound(
-                    torch, t, x, n_out)
+                bound_ms, bound_by, nbytes, flops = chunked_bound(
+                    t, x, n_out)
                 library_ms = library_call_ms = None
                 if dtype == torch.float32:
                     library_ms = kernel_ms(
@@ -1497,8 +1526,7 @@ def phase_split_kernels(torch, device, g):
                        "max_abs_err": abs_err, "rel_err": rel_err,
                        "tol": tol, "ms": ms,
                        "call_ms": call_ms(kernel, reps=10),
-                       "plain_ms": call_ms(plain, reps=2,
-                                           warmup=1),
+                       "plain_ms": plain_ms,
                        "library_ms": library_ms,
                        "library_call_ms": library_call_ms,
                        "library": "torch.sparse.mm on a CSR adjacency "
@@ -1640,17 +1668,6 @@ def _timed(torch, fn):
     return res, a.elapsed_time(b)
 
 
-def _chunked_plain(torch, t, x, n_nodes):
-    """The chunked K1 runner's plain version: the same permutation, each
-    chunk's plain walk, the same row map."""
-    from gist_tpu_torch.ops import dedup_spmm as K
-    xp = x.index_select(0, t.perm) if t.perm is not None else x
-    out = torch.cat([K.dedup_spmm_reference(t.job_offsets[c], t.w_blocks[c],
-                                            t.u_senders[c], xp)
-                     for c in range(t.n_chunks)])
-    return out.index_select(0, t.pos) if t.pos is not None else out[:n_nodes]
-
-
 def _check_chunked_k1(torch, device, graph):
     """K1 once per chunk at the full-scale path's own shapes: forward on
     ``dedup_c`` and transpose on ``dedup_c_t``, at F=256 (layer 0) and
@@ -1671,7 +1688,6 @@ def _check_chunked_k1(torch, device, graph):
     rows = {}
     for direction, g in (("fwd", graph), ("bwd", graph.transpose())):
         t = g.dedup_c
-        lay_bytes, nnz = _chunked_bytes_nnz(torch, t)
         out_rows = t.n_chunks * t.tiles_per_chunk * t.tile_rows
         adj = _csr_adjacency(torch, graph, torch.float32, device,
                              transpose=direction == "bwd")
@@ -1679,8 +1695,8 @@ def _check_chunked_k1(torch, device, graph):
             x = torch.from_numpy(rng.standard_normal(
                 (n, f)).astype(np.float32)).to(device)
             got = K.run_dedup_chunked(t, x, n)
-            want, plain_ms = _timed(torch, lambda: _chunked_plain(
-                torch, t, x, n))
+            want, plain_ms = _timed(torch, lambda: chunked_plain(
+                t, x, n))
             seg, segment_ms = _timed(torch, lambda: spmm_segment_chunked(
                 g, x))
             if not torch.isfinite(got).all():
@@ -1690,9 +1706,7 @@ def _check_chunked_k1(torch, device, graph):
             seg_err = float((got - seg).abs().max() / seg.abs().max())
             lib_err = float((got - torch.sparse.mm(adj, x)).abs().max()
                             / seg.abs().max())
-            bound_ms, bound_by = bound(
-                lay_bytes + (n + out_rows) * f * 4, 2 * nnz * f,
-                torch.float32)
+            bound_ms, bound_by, _, flops = chunked_bound(t, x, out_rows)
             ms = kernel_ms(lambda: K.run_dedup_chunked(t, x, n),
                            windows=3)
             one_call_ms = call_ms(lambda: K.run_dedup_chunked(t, x, n),
@@ -1712,7 +1726,7 @@ def _check_chunked_k1(torch, device, graph):
                    "library": "torch.sparse.mm on a CSR adjacency",
                    "ms_over_library": ms / library_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "w_nonzero": nnz,
+                   "w_nonzero": flops // (2 * f),
                    **_grid(t.job_offsets, f, t.tile_rows)}
             emit(row)
             if not (rel_err <= 1e-5 and seg_err <= 1e-5):
@@ -1729,6 +1743,7 @@ def phase_gat_chunked(torch, device, ds, graph):
     a seed) on the synth-reddit graph's chunked layout through K4 once
     per chunk and layer, against the segment path: 1e-4 relative to
     max|segment|."""
+    from gist_tpu_torch.bench import gat_chunked
     from gist_tpu_torch.models import gat
     from gist_tpu_torch.ops import gat_dedup as G
 
@@ -1750,13 +1765,7 @@ def phase_gat_chunked(torch, device, ds, graph):
         z = torch.einsum("nf,hfo->nho", x, layer["w"]).contiguous()
         src = torch.einsum("nho,ho->nh", z, layer["attn"][:, :512])
         dst = torch.einsum("nho,ho->nh", z, layer["attn"][:, 512:])
-        t = graph.dedup_c
-        lay_bytes, nnz = _chunked_bytes_nnz(torch, t)
-        rows = t.n_chunks * t.tiles_per_chunk * t.tile_rows
-        heads, o = z.shape[1], z.shape[2]
-        l0_bound = bound(lay_bytes + z.numel() * 4 + src.numel() * 8
-                         + rows * heads * (o * 4 + 8),
-                         nnz * heads * (2 * o + 6), torch.float32)
+        l0_bound = gat_chunked.fwd_bound(graph.dedup_c, z)
         row = {"phase": "gat_chunked", "k4_launches": launches,
                "max_abs_err": err, "rel_err": rel, "tol": 1e-4,
                "finite": bool(torch.isfinite(got).all()),
@@ -2749,7 +2758,7 @@ def phase_scan_epochs_chunked(torch, device, ds, graph):
         np.float32)).to(device)
     err, prof = _replay_check(
         torch, lambda: (K.run_dedup_chunked(t, x, n),),
-        lambda got: (_chunked_plain(torch, t, x, n),))
+        lambda got: (chunked_plain(t, x, n),))
     row = {"rel_err": err, "k1_in_trace": _count(prof, "dedup_spmm_kernel"),
            "n_chunks": cf}
     emit({"phase": "scan_epochs", "case": "c_chunked_gcn_h256",
@@ -2896,7 +2905,10 @@ SHARDED_CLI_BARS = {"sage": [1e-5] * 3, "gcn": [1e-5, 1e-4, 1e-4],
 # the bf16 control stays over it.  Round 2 of the G=2 run differs from
 # the same run repeated by 3.1e-4, as much as from G=1 (1.7e-4 to
 # 4.8e-4); a bf16 halo reads 1.0e-3 there, so round 2 cannot tell the
-# two apart and its bar only sits over that spread.
+# two apart and its bar only sits over that spread.  The 2-D script's
+# run is held against its 1-D control at the same bars: at its own
+# configuration (weight decay 0, init and boundaries seeded 0 and 11)
+# the H100 read 1.0e-6 and 2.1e-5.
 IST_2D_BARS = [4e-5, 1e-3]
 
 
@@ -3182,7 +3194,10 @@ def _job_ist_mesh(torch, rank, world, names, cache_dir):
 # ist_sharded_2d.py's configuration (SAGE h128, 2 layers, lr 1e-2,
 # synth-reddit-small), 2 rounds of 8 steps; the graph dim cut from 4 to
 # 2 (4 ranks on the card).  K1 per rank: 5 a step (3 forward, 2
-# transpose); the eval runs the flat graph's segment path.
+# transpose); the eval runs the flat graph's segment path.  Beside it,
+# once, ``gist_tpu_torch/bench/ist_sharded_2d.py:run`` at the same cut:
+# the script's 2-D run (the same K1 launches) and its 1-D control (the
+# flat graph's segment path).
 IST_2D_ROUNDS, IST_2D_STEPS = 2, 8
 
 
@@ -3204,10 +3219,52 @@ def _ist_2d_cli(torch, world, extra=()):
             "launches": launch_counts(), "seconds": time.time() - t0}
 
 
+def _ist_2d_script(torch, ds, world):
+    """The 2-D script's run and its 1-D control on S=2 x G=world/2
+    ranks, with this rank's launches and seconds."""
+    from gist_tpu_torch.bench import ist_sharded_2d
+    reset_launch_counts()
+    t0 = time.time()
+    r = ist_sharded_2d.run(ds, "cuda", subnets=2, graph=world // 2,
+                           rounds=IST_2D_ROUNDS, steps=IST_2D_STEPS,
+                           hidden=128)
+    torch.cuda.synchronize()
+    if not r["interior_tiles"]:
+        raise RuntimeError("2-D script: no interior tiles")
+    return {"curves": r["curves"], "mesh": r["mesh"],
+            "max_val_gap": r["max_val_gap_2d_vs_1d"],
+            "comm_per_step": r["comm_per_step"],
+            "launches": launch_counts(), "seconds": time.time() - t0}
+
+
+def _check_ist_2d_script(ranks):
+    """Phase 29's bars on the 2-D script (one record a rank): every rank
+    returns rank 0's 2-D losses and both runs' accuracies (evaluated on
+    rank 0 and handed out), and on every rank the 1-D control's round
+    losses are within ``IST_2D_BARS`` of the 2-D run's.  Each graph
+    column trains its own copy of the control on the segment path, whose
+    atomics move the last bits, so the ranks' control losses are held to
+    the bars, not to each other."""
+    c0 = ranks[0]["curves"]
+    for r in ranks:
+        c2, c1 = r["curves"]["2d"], r["curves"]["1d"]
+        if c2["loss"] != c0["2d"]["loss"] or any(
+                r["curves"][tag][key] != c0[tag][key]
+                for tag in ("2d", "1d") for key in ("val", "test")):
+            raise RuntimeError("2-D script: ranks return other curves")
+        if not (_finite(c2["loss"]) and _finite(c1["loss"]) and all(
+                e <= tol for e, tol in
+                zip(_loss_rel(c2["loss"], c1["loss"]), IST_2D_BARS))):
+            raise RuntimeError(f"2-D script: the 2-D run's losses "
+                               f"{c2['loss']} off its 1-D control's "
+                               f"{c1['loss']} (bars {IST_2D_BARS})")
+
+
 def _job_ist_2d(torch, rank, world):
     """Phase 29 on S=2 x G=world/2 ranks: the CLI, the witnesses of its
-    bar (the same run again, and a bf16-halo control), then one sharded
-    SAGE h128 step's gradients over the 2-D mesh's graph dim."""
+    bar (the same run again, and a bf16-halo control), the 2-D script
+    with its 1-D control once, then one sharded SAGE h128 step's
+    gradients over the 2-D mesh's graph dim."""
     from gist_tpu_torch.data import load_dataset
     from gist_tpu_torch.parallel import build_sharded_graph
     from gist_tpu_torch.parallel.ist_sharded import make_ist_graph_mesh
@@ -3215,6 +3272,7 @@ def _job_ist_2d(torch, rank, world):
     out["repeat"] = _ist_2d_cli(torch, world)
     out["bf16"] = _ist_2d_cli(torch, world, BF16_HALO)
     ds = load_dataset("synth-reddit-small")
+    out["script"] = _ist_2d_script(torch, ds, world)
     mesh = make_ist_graph_mesh(2, world // 2, "cuda")
     sg = build_sharded_graph(ds.senders, ds.receivers, ds.n_nodes,
                              world // 2)
@@ -3437,6 +3495,17 @@ def phase_multi_rank(torch, power):
                         "losses": ref2[0]["losses"],
                         "val_accs": ref2[0]["val_accs"],
                         "train_time": ref2[0]["train_time"]}})
+    script = r4[0]["script"]
+    c2, c1 = script["curves"]["2d"], script["curves"]["1d"]
+    emit({"phase": "ist_sharded_2d", "script": "ist_sharded_2d",
+          "backend": b4, "world": 4, "mesh": script["mesh"],
+          "seconds": [r["script"]["seconds"] for r in r4],
+          "curves": script["curves"], "max_val_gap": script["max_val_gap"],
+          "loss_rel_2d_vs_1d": _loss_rel(c2["loss"], c1["loss"]),
+          "control_losses_per_rank": [r["script"]["curves"]["1d"]["loss"]
+                                      for r in r4],
+          "bars": IST_2D_BARS, "comm_per_step": script["comm_per_step"],
+          "launches_per_rank": [r["script"]["launches"] for r in r4]})
 
     # every line is out before the first check can raise
     launches = {"sharded_graph": _check_sharded_graph(sg_ranks, d1_times,
@@ -3447,7 +3516,7 @@ def phase_multi_rank(torch, power):
             launches["ist_mesh"][k] += v
     want = 5 * IST_2D_ROUNDS * IST_2D_STEPS
     runs_2d = ref2 + [x for r in r4 for x in (r, r["repeat"], r["bf16"])]
-    for r in runs_2d:
+    for r in runs_2d + [r["script"] for r in r4]:
         if r["launches"]["K1"] != want:
             raise RuntimeError(f"2-D mesh: K1 launched {r['launches']} on a "
                                f"rank, want {want}")
@@ -3475,8 +3544,10 @@ def phase_multi_rank(torch, power):
         raise RuntimeError(f"the 2-D round-1 bar does not tell a bf16 halo "
                            f"apart: {r4[0]['bf16']['losses']} against "
                            f"{ref2[0]['losses']}")
+    _check_ist_2d_script([r["script"] for r in r4])
     launches["ist_sharded_2d"] = {
-        "K1": sum(r["launches"]["K1"] for r in runs_2d)}
+        "K1": sum(r["launches"]["K1"] for r in runs_2d)
+        + sum(r["script"]["launches"]["K1"] for r in r4)}
     return launches, r0["k1_interior"]
 
 
@@ -3514,9 +3585,8 @@ def _bench_entry(torch, card):
     from gist_tpu_torch.bench import entry
     t0 = time.time()
     env = {k: v for k, v in os.environ.items() if k != "GIST_BENCH_FAST"}
-    res = subprocess.run([sys.executable, "bench_torch.py"], cwd=HERE,
-                         env=env, capture_output=True, text=True,
-                         timeout=900)
+    res = procs.run_child([sys.executable, "bench_torch.py"], 900, cwd=HERE,
+                          env=env, capture_output=True, text=True)
     lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
     if res.returncode or len(lines) != 1:
         raise RuntimeError(f"bench_torch.py: exit code {res.returncode}, "
@@ -3747,6 +3817,208 @@ def phase_bench(torch, device, card):
     return launches, scripts["kernel_tune"]["rows"]
 
 
+# --- fullscale_scripts: the full-scale benchmark scripts (phase 31) -------
+
+# the scripts' bars: every kernel against its plain walk and the segment
+# path (fp32 sums in a fixed order), the zero-score attention, the
+# resumed loss and F1 (the same numbers read back), Cluster-GCN's losses
+FULLSCALE_TOL = 1e-5
+
+
+def _fullscale_spmm(torch, device, ds_a, g_a):
+    """``amazon_spmm`` at threshold 0 and 128, CU 512 and 1024: rows."""
+    from gist_tpu_torch.bench import amazon_spmm
+    rows = []
+    for threshold in (0, 128):
+        for cu in (512, 1024):
+            t0 = time.time()
+            dc = amazon_spmm.build_layout(ds_a, threshold=threshold, cu=cu,
+                                          chunk_rows=2 ** 13)
+            build_s = time.time() - t0
+            rec = amazon_spmm.run(ds_a, dc, device, iters=3,
+                                  segment_iters=3, plain=True, seg_graph=g_a)
+            rec.update(layout=amazon_spmm.layout_name(threshold, cu),
+                       layout_build_s=build_s, seconds=time.time() - t0)
+            emit({"phase": "fullscale_scripts", "script": "amazon_spmm",
+                  **rec})
+            kernel = "K2" if threshold else "K1"
+            if not (rec["plain_rel_err"] <= FULLSCALE_TOL
+                    and rec["rel_err_vs_segment"] <= FULLSCALE_TOL
+                    and rec["finite"] and rec["kernel"] == kernel
+                    and rec["kernel_launches"].get(kernel)
+                    and rec["bound_ms"] <= rec["pallas_chunked_ms"]):
+                raise RuntimeError(f"amazon_spmm {rec['layout']}: {kernel} "
+                                   f"off its plain walk or the segment path,"
+                                   f" or not launched: {rec}")
+            rows.append(rec)
+            del dc
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _fullscale_uw(torch, device, ds_n, cache_dir):
+    """``uw_k1_probe`` at h2048 and ``amazon_uw_fullscale`` at h512, K=8
+    (1 round, then a rerun with the same key to 2) on the normalised
+    synth-amazon2m-small."""
+    import math
+
+    from gist_tpu_torch.bench import amazon_uw_fullscale, uw_k1_probe
+    t0 = time.time()
+    probe = uw_k1_probe.run(ds_n, device, hidden=2048, steps=5, rounds=3,
+                            psize=50, batch_size=10, cache_dir=cache_dir)
+    del probe["params"]
+    emit({"phase": "fullscale_scripts", "script": "uw_k1_probe",
+          "seconds": time.time() - t0, **probe})
+    if not (all(math.isfinite(v) for v in probe["losses"])
+            and probe["kernel_launches"].get("K1")
+            and probe["projected_round750_s"] > 0):
+        raise RuntimeError(f"uw_k1_probe failed its checks: {probe}")
+    ckpt = os.path.join(cache_dir, "uw_ckpt_h512_k8")
+    kw = dict(hidden=512, k=8, eval_every=1, psize=50, batch_size=10,
+              iter_per_site=5, ckpt=ckpt, cache_dir=cache_dir,
+              verbose=False)
+    calls = []
+    for epochs in (8, 16):      # local epochs 1, then 2: 1 round, then 2
+        t0 = time.time()
+        rec = amazon_uw_fullscale.run(ds_n, device, epochs=epochs,
+                                      eval_on_cpu=False, **kw)
+        rec["seconds"] = time.time() - t0
+        emit({"phase": "fullscale_scripts", "script": "amazon_uw_fullscale",
+              **rec})
+        calls.append(rec)
+    first, second = calls
+    if not (first["n_rounds"] == 1 and first["resumed_from_round"] == 0
+            and second["n_rounds"] == 2
+            and second["resumed_from_round"] == 1
+            and second["rounds_this_call"] == 1
+            and second["losses"][0] == first["losses"][0]
+            and second["val_accs"][0] == first["val_accs"][0]
+            and all(math.isfinite(v) for v in second["losses"])
+            and first["kernel_launches"].get("K1")
+            and second["kernel_launches"].get("K1")):
+        raise RuntimeError(f"amazon_uw_fullscale's rerun did not resume "
+                           f"from its checkpoint: {calls}")
+    return probe, calls
+
+
+def _fullscale_cluster(torch, cache_dir):
+    """``cluster_fullscale`` for 1 epoch on synth-amazon2m-small (psize
+    50) against ``train_cluster_gcn`` with the same config and seed."""
+    from gist_tpu_torch.bench import cluster_fullscale
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.models import sage
+    from gist_tpu_torch.train.cluster import train_cluster_gcn
+    from gist_tpu_torch.train.common import TrainConfig
+    t0 = time.time()
+    rec = cluster_fullscale.run(dataset="synth-amazon2m-small", n_epochs=1,
+                                eval_every=1, psize=50, batch_size=10,
+                                cache_dir=cache_dir, device="cuda",
+                                eval_cpu=False)
+    cli_s = time.time() - t0
+    ds = load_dataset("synth-amazon2m-small")
+    cfg = sage.SAGEConfig(ds.in_feats, 512, ds.n_classes, n_layers=4,
+                          dropout=0.2, use_layernorm=True)
+    tc = TrainConfig(lr=0.01, weight_decay=0.0, n_epochs=1, seed=3)
+    direct = train_cluster_gcn(ds, cfg, tc, psize=50, batch_size=10,
+                               use_f1=True, normalize=True,
+                               cache_dir=cache_dir, eval_cpu=False,
+                               eval_every=1, scan_batches=True,
+                               device="cuda")
+    rel = _loss_rel(rec["losses"], direct["losses"])
+    row = {"phase": "fullscale_scripts", "script": "cluster_fullscale",
+           "seconds": cli_s, "losses": rec["losses"],
+           "direct_losses": direct["losses"], "loss_rel": rel,
+           "val_accs": rec["val_accs"], "direct_val_accs":
+           direct["val_accs"], "steady_epoch_s": rec.get("steady_epoch_s"),
+           "hardware": rec["hardware"], "power_limit_w":
+           rec["power_limit_w"], "kernel_launches": rec["kernel_launches"],
+           "tol": FULLSCALE_TOL}
+    emit(row)
+    if not (rel and max(rel) <= FULLSCALE_TOL
+            and rec["kernel_launches"].get("K1")):
+        raise RuntimeError(f"cluster_fullscale off the direct trainer: "
+                           f"{row}")
+    return rec
+
+
+def phase_fullscale_scripts(torch, device, ds_a, ds_big, big_graph):
+    """Phase 31 (see the module docstring); returns the launches by
+    kernel of the whole phase."""
+    import dataclasses
+    import tempfile
+
+    from gist_tpu_torch.bench import gat_chunked
+    from gist_tpu_torch.graph import graph_from_edges
+    before = launch_counts()
+    g_a = graph_from_edges(ds_a.senders, ds_a.receivers,
+                           ds_a.n_nodes).to(device)
+    spmm_rows = _fullscale_spmm(torch, device, ds_a, g_a)
+    del g_a
+
+    t0 = time.time()
+    gc = gat_chunked.run(ds_big, big_graph, device, hidden=128, heads=2,
+                         iters=3)
+    emit({"phase": "fullscale_scripts", "script": "gat_chunked",
+          "seconds": time.time() - t0, **gc})
+    if not (gc["zero_score_rel_err_vs_spmm"] <= FULLSCALE_TOL
+            and gc["logits_finite"]
+            and gc["kernel_launches"].get("K4")
+            and gc["kernel_launches"].get("K1")):
+        raise RuntimeError(f"gat_chunked failed its checks: {gc}")
+    torch.cuda.empty_cache()
+
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_fullscale_")
+    try:
+        ds_n = dataclasses.replace(ds_a)
+        ds_n.normalize_features()
+        _fullscale_uw(torch, device, ds_n, cache_dir)
+        _fullscale_cluster(torch, cache_dir)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    launches = {k: launch_counts()[k] - before[k] for k in before}
+    emit({"phase": "fullscale_scripts", "launches": launches,
+          "k1_cu_rows": {r["layout"]: r["plain_rel_err"]
+                         for r in spmm_rows}})
+    torch.cuda.empty_cache()
+    return launches, spmm_rows
+
+
+def _stop_resource_tracker():
+    """Stop the ``spawn`` context's resource tracker, which phases 27-29's
+    ``torch.multiprocessing`` started and which would live until this
+    process exits."""
+    from multiprocessing import resource_tracker
+    tracker = resource_tracker._resource_tracker
+    if tracker._pid is not None:          # started by a spawn
+        tracker._stop()
+
+
+def _chunked_by_cu(rows, kernel):
+    """Phase 31's ``amazon_spmm`` rows of ``kernel`` by layout: the pass's
+    ms, bound, the segment path's ms and both errors."""
+    return {r["layout"]: {k: r[k] for k in (
+        "pallas_chunked_ms", "bound_ms", "bound_by", "segment_chunked_ms",
+        "plain_rel_err", "rel_err_vs_segment", "n_chunks")}
+        for r in rows if r["kernel"] == kernel}
+
+
+def phase_processes():
+    """Every process this script started must have ended: wait up to 10 s
+    for them, print what is left, and fail (after killing it) if any
+    is."""
+    _stop_resource_tracker()
+    deadline = time.time() + 10
+    left = procs.descendants()
+    while left and time.time() < deadline:
+        time.sleep(0.5)
+        left = procs.descendants()
+    emit({"phase": "processes", "left": [{"pid": pid, "cmd": cmd[:200]}
+                                         for pid, cmd in left]})
+    if left:
+        procs.kill([pid for pid, _ in left])
+        raise RuntimeError(f"processes left running: {left}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3843,7 +4115,7 @@ def main():
     v1_rows = _v1_kernel_rows(
         torch, device, v1_graph, "v1_full_graph",
         ((256, torch.float32), (41, torch.float32)),
-        ((512, torch.float32), (41, torch.float32)), plain_reps=2)
+        ((512, torch.float32), (41, torch.float32)), plain_reps=1)
     emit({"phase": "v1_full_graph", "seconds": time.time() - t0})
 
     t0 = time.time()
@@ -3909,6 +4181,11 @@ def main():
     scan_c_launches, scan_c_row = phase_scan_epochs_chunked(
         torch, device, ds_big, big_graph)
     emit({"phase": "scan_epochs_chunked", "seconds": time.time() - t0})
+
+    t0 = time.time()
+    fullscale_launches, fullscale_spmm = phase_fullscale_scripts(
+        torch, device, ds, ds_big, big_graph)
+    emit({"phase": "fullscale_scripts", "seconds": time.time() - t0})
     del ds_big, big_graph
     torch.cuda.empty_cache()
 
@@ -3923,6 +4200,8 @@ def main():
     cli_launches = phase_uw_cli_chunked_eval(torch, device)
     emit({"phase": "uw_cli_chunked_eval", "seconds": time.time() - t0})
 
+    phase_processes()
+
     main_case = cases["fwd F=256 float32"]
     full_case = chunked_rows["run_dedup_chunked fwd F=256 float32"]
     kernels = [{
@@ -3933,7 +4212,7 @@ def main():
         + cli_launches + pp_launches + lsgd_launches + ic_gcn_launches
         + uw_gcn_launches + scan_b_launches + scan_c_launches
         + sharded_launches["K1"] + mesh_launches["K1"] + ist_2d_launches
-        + bench_launches["K1"],
+        + bench_launches["K1"] + fullscale_launches["K1"],
         "launches_by_path": {"sage_ultrawide": launches,
                              "full_graph_gcn": full_launches,
                              "uw_resume": resume_launches,
@@ -3948,7 +4227,8 @@ def main():
                              "sharded_graph": sharded_launches["K1"],
                              "ist_mesh": mesh_launches["K1"],
                              "ist_sharded_2d": ist_2d_launches,
-                             "bench": bench_launches["K1"]},
+                             "bench": bench_launches["K1"],
+                             "fullscale_scripts": fullscale_launches["K1"]},
         "replay_rel_err": max([r["rel_err"] for r in scan_b_rows.values()]
                               + [scan_c_row["rel_err"]]),
         "max_abs_err": max([c["max_abs_err"] for c in [
@@ -3956,7 +4236,9 @@ def main():
             *gcn_k1.values()] if c["case"].endswith("float32")]
             + [r["max_abs_err"] for r in k1_interior.values()]
             + [r["max_abs_err"] for r in k1_tiles
-               if r["dtype"] == "fp32"]),
+               if r["dtype"] == "fp32"]
+            + [r["plain_max_abs_err"] for r in fullscale_spmm
+               if r["kernel"] == "K1"]),
         "sharded_interior": k1_interior,
         "tile_sizes": {f"TN={r['tile_rows']} {r['dtype']}": {
             k: r[k] for k in ("ms", "bound_ms", "bound_by", "max_abs_err",
@@ -3969,7 +4251,8 @@ def main():
         "library_ms": main_case["library_ms"],
         "full_scale_pass": {k: full_case[k] for k in (
             "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}}]
+            "library_ms")},
+        "chunked_by_cu": _chunked_by_cu(fullscale_spmm, "K1")}]
     gat_kernels = (("K4", "gat_fwd", "gist_tpu/ops/pallas_gat.py:546"),
                    ("K5", "gat_bwd_b1", "gist_tpu/ops/pallas_gat.py:1015"),
                    ("K6", "gat_bwd_b2", "gist_tpu/ops/pallas_gat.py:1070"))
@@ -3978,10 +4261,14 @@ def main():
         "name": "split_spmm", "route": "cuda",
         "source": "gist_tpu_torch/csrc/split_spmm.cu",
         "replaces": "gist_tpu/ops/pallas_spmm.py:298",
-        "launches": k2_launches,
-        "launches_by_path": {"split_gcn_step": k2_launches},
-        "max_abs_err": max(c["max_abs_err"] for c in split_rows.values()
-                           if c["case"].endswith("float32")),
+        "launches": k2_launches + fullscale_launches["K2"],
+        "launches_by_path": {"split_gcn_step": k2_launches,
+                             "fullscale_scripts": fullscale_launches["K2"]},
+        "max_abs_err": max([c["max_abs_err"] for c in split_rows.values()
+                            if c["case"].endswith("float32")]
+                           + [r["plain_max_abs_err"] for r in fullscale_spmm
+                              if r["kernel"] == "K2"]),
+        "chunked_by_cu": _chunked_by_cu(fullscale_spmm, "K2"),
         "ms": split_main["ms"], "call_ms": split_main["call_ms"],
         "plain_ms": split_main["plain_ms"],
         "bound_ms": split_main["bound_ms"],
@@ -3990,16 +4277,18 @@ def main():
     for (key, name, replaces), count in zip(gat_kernels, gat_launches):
         main_row = gat_rows[(key, "H=2 O=256 float32")]
         extra = chunked_k4 if key == "K4" else 0
+        scripts = fullscale_launches[key]
         sharded = sharded_launches["K4"] if key == "K4" else 0
         kernels.append({
             "name": name, "route": "cuda",
             "source": "gist_tpu_torch/csrc/gat_dedup.cu",
             "replaces": replaces,
             "launches": count + extra + sharded + mesh_launches[key]
-            + bench_launches[key],
+            + bench_launches[key] + scripts,
             "launches_by_path": {"gat_gist": count,
                                  "gat_gist_mesh": mesh_launches[key],
                                  "bench": bench_launches[key],
+                                 "fullscale_scripts": scripts,
                                  **({"full_graph_gat": extra,
                                      "sharded_gat": sharded}
                                     if key == "K4" else {})},

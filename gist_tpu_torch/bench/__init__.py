@@ -9,6 +9,13 @@ the CPU:
   gather rate;
 * :mod:`.gat` — the GAT attention kernels and the GAT train step;
 * :mod:`.sharded` — the sharded aggregation and GCN forward at D=1;
+* the full-scale scripts: :mod:`.amazon_spmm` (K1 or K2 once per chunk
+  over synth-amazon2m), :mod:`.gat_chunked` (K4 once per chunk at
+  Reddit's edge count), :mod:`.uw_k1_probe` (the K=1 ultra-wide step
+  rate), :mod:`.ist_sharded_2d` (the 2-D mesh beside its 1-D control),
+  :mod:`.amazon_uw_fullscale` (ultra-wide, resumable by key) and
+  :mod:`.cluster_fullscale` (the Cluster-GCN baseline);
+* :mod:`.procs` — the one way to start a child process;
 * :mod:`.timing` — the one timer; :mod:`.common` — rates, bounds,
   launch counts, the device stamp and the result files.
 """

@@ -56,7 +56,6 @@ the run).
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import os
 import sys
@@ -192,40 +191,21 @@ def chunked_cache_path(ds, name: str, cache_dir: str) -> str:
     the builder's sizes and a hash of the graph (senders, receivers and
     node count), so a layout built from other sizes or another graph is
     never read back."""
-    h = hashlib.sha1(np.int64(ds.n_nodes).tobytes())
-    for a in (ds.senders, ds.receivers):
-        h.update(np.ascontiguousarray(a, dtype=np.int64).tobytes())
     return os.path.join(
         cache_dir, f"torch_bench_chunked_{name}_tn{CHUNK_TILE_ROWS}"
-        f"_c{CHUNK_ROWS}_{h.hexdigest()[:12]}.npz")
+        f"_c{CHUNK_ROWS}_"
+        f"{common.graph_digest(ds.senders, ds.receivers, ds.n_nodes)}.npz")
 
 
 def chunked_layout(ds, name: str, cache_dir: str):
     """synth-amazon2m-small's chunked forward layout at the JAX bench's
     sizes, from ``cache_dir`` when built before."""
-    from gist_tpu_torch.graph import ChunkedDedupTiles, _build_dedup_chunked
-    path = chunked_cache_path(ds, name, cache_dir)
-    if os.path.exists(path):
-        z = np.load(path)
-        order = {k: torch.from_numpy(z[k]) if k in z else None
-                 for k in ("pos", "perm")}
-        return ChunkedDedupTiles(
-            u_senders=torch.from_numpy(z["u"]),
-            w_blocks=torch.from_numpy(z["w"]),
-            job_offsets=torch.from_numpy(z["o"]), tile_rows=int(z["tn"]),
-            cu=int(z["cu"]), max_jobs=int(z["mj"]), num_tiles=int(z["nt"]),
-            **order)
-    dc = _build_dedup_chunked(ds.senders, ds.receivers, ds.n_nodes,
-                              tile_rows=CHUNK_TILE_ROWS, chunk_rows=CHUNK_ROWS)
-    if dc is None:
-        raise RuntimeError(f"the chunked layout of {name} did not build")
-    os.makedirs(cache_dir, exist_ok=True)
-    np.savez(path, u=dc.u_senders.numpy(), w=dc.w_blocks.numpy(),
-             o=dc.job_offsets.numpy(), tn=dc.tile_rows, cu=dc.cu,
-             mj=dc.max_jobs, nt=dc.num_tiles,
-             **{k: getattr(dc, k).numpy() for k in ("pos", "perm")
-                if getattr(dc, k) is not None})
-    return dc
+    from gist_tpu_torch.graph import _build_dedup_chunked
+    return common.cached_chunked(
+        chunked_cache_path(ds, name, cache_dir),
+        lambda: _build_dedup_chunked(ds.senders, ds.receivers, ds.n_nodes,
+                                     tile_rows=CHUNK_TILE_ROWS,
+                                     chunk_rows=CHUNK_ROWS))
 
 
 def chunked_section(name: str, cache_dir: str, dev) -> dict:

@@ -71,14 +71,6 @@ def _model(args, ds, use_ln, dropout):
                               n_heads=args.n_heads)
 
 
-def _init(model, cfg, seed, device) -> dict:
-    """Params from a CPU generator, so a run's initial model is the
-    same on every rank, device and world size."""
-    p = model.init(torch.Generator().manual_seed(seed), cfg)
-    return {"layers": [{k: v.to(device) for k, v in l.items()}
-                       for l in p["layers"]]}
-
-
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -138,7 +130,7 @@ def _run(args, device):
                                                      shard_features)
     from gist_tpu_torch.parallel.train import (build_sharded_infer,
                                                build_sharded_step)
-    from gist_tpu_torch.train.common import write_results
+    from gist_tpu_torch.train.common import seeded_init, write_results
     from gist_tpu_torch.utils import fold_in
 
     world = dist.get_world_size()
@@ -179,7 +171,7 @@ def _run(args, device):
     use_ln = str2bool(args.use_layernorm)
     dropout = args.dropout if args.model == "gcn" else 0.0
     model, cfg = _model(args, ds, use_ln, dropout)
-    params = _init(model, cfg, args.rnd_seed, dev)
+    params = seeded_init(model, cfg, args.rnd_seed, dev)
     hdt = torch.bfloat16 if args.halo_dtype == "bfloat16" else None
     init_opt, step = build_sharded_step(
         sg, mesh, kind=args.model, lr=args.lr,
@@ -247,7 +239,7 @@ def _main_2d(args, ds, d, senders, receivers, device):
     from gist_tpu_torch.parallel.graph_shard import shard_features
     from gist_tpu_torch.parallel.ist_sharded import (build_ist_sharded_round,
                                                      make_ist_graph_mesh)
-    from gist_tpu_torch.train.common import write_results
+    from gist_tpu_torch.train.common import seeded_init, write_results
 
     S = args.ist_subnets
     if d % S:
@@ -268,7 +260,7 @@ def _main_2d(args, ds, d, senders, receivers, device):
     msk = _local_rows(sg, ds.train_mask, g_rank, dev)
 
     model, cfg = _model(args, ds, use_ln, 0.0)
-    full = _init(model, cfg, args.rnd_seed, dev)
+    full = seeded_init(model, cfg, args.rnd_seed, dev)
     # GAT never splits the last hidden boundary: its shared last-layer
     # attention would train against disjoint halves
     sizes = boundary_sizes(cfg.in_feats, cfg.n_hidden, cfg.n_layers,

@@ -7,10 +7,13 @@
 //   out[i*TN + r, f] = sum_{j = job_offsets[i]}^{job_offsets[i+1]-1}
 //                      sum_{c < CU} W[j, r, c] * x[u_senders[j*CU + c], f]
 //
-// with TN = 64, 128 or 256 rows per tile (one instance each: the flat
-// layouts take 128, the chunked ones and the benchmarks' tile sweep 64
-// and 256), CU = 1024 unique-sender slots per job, int8 counts W and an
-// fp32 accumulator; the output is in x's dtype.
+// with TN = 64, 128 or 256 rows per tile (the flat layouts take 128,
+// the chunked ones and the benchmarks' tile sweep 64 and 256), CU = 512
+// or 1024 unique-sender slots per job (the layouts' default is 1024; the
+// full-scale SpMM benchmark builds 512 too), one instance for each of
+// the six pairs, int8 counts W and an fp32 accumulator; the output is in
+// x's dtype.  A CU of 512 halves a warp's slot list (16 KB of shared
+// memory a block instead of 32) and doubles the jobs of a tile.
 //
 // Design: the sparse walk of count_block.cuh (shared with K2): one warp
 // per destination row and 256-column feature slice, eight rows a block,
@@ -41,9 +44,8 @@
 
 namespace {
 
-constexpr int CU = 1024;      // unique-sender slots per job
-
 // Slot k of job j reads x[u_senders[j*CU + k]].
+template <int CU>
 struct GatherRows {
   const int32_t* u_senders;
   __device__ __forceinline__ count_block::JobRows job(int j) const {
@@ -51,7 +53,7 @@ struct GatherRows {
   }
 };
 
-template <typename T, int TN, int V>
+template <typename T, int TN, int CU, int V>
 __global__ void __launch_bounds__(count_block::THREADS)
 dedup_spmm_kernel(const int32_t* __restrict__ job_offsets,
                   const int8_t* __restrict__ w_blocks,
@@ -60,74 +62,79 @@ dedup_spmm_kernel(const int32_t* __restrict__ job_offsets,
                   T* __restrict__ out,
                   int f, int slices) {
   count_block::tile_spmm<T, TN, CU, V>(job_offsets, w_blocks,
-                                       GatherRows{u_senders}, x, out, f,
+                                       GatherRows<CU>{u_senders}, x, out, f,
                                        slices);
 }
 
-template <typename T, int TN, int V>
+template <typename T, int TN, int CU, int V>
 void launch_vec(const void* job_offsets, const void* w_blocks,
                 const void* u_senders, const void* x, void* out,
                 int blocks, int f, int slices, cudaStream_t stream) {
-  dedup_spmm_kernel<T, TN, V><<<blocks, count_block::THREADS, 0, stream>>>(
+  dedup_spmm_kernel<T, TN, CU, V>
+      <<<blocks, count_block::THREADS, 0, stream>>>(
       static_cast<const int32_t*>(job_offsets),
       static_cast<const int8_t*>(w_blocks),
       static_cast<const int32_t*>(u_senders), static_cast<const T*>(x),
       static_cast<T*>(out), f, slices);
 }
 
-template <typename T, int TN>
-void launch_tn(const void* job_offsets, const void* w_blocks,
-               const void* u_senders, const void* x, void* out, int num_tiles,
-               int f, cudaStream_t s) {
-  const count_block::Plan p = count_block::plan<T>(f, x);
-  const int blocks = num_tiles * (TN / count_block::WARPS) * p.slices;
-  if (p.vec == 4)
-    launch_vec<T, TN, 4>(job_offsets, w_blocks, u_senders, x, out, blocks, f,
-                         p.slices, s);
-  else if (p.vec == 2)
-    launch_vec<T, TN, 2>(job_offsets, w_blocks, u_senders, x, out, blocks, f,
-                         p.slices, s);
-  else
-    launch_vec<T, TN, 1>(job_offsets, w_blocks, u_senders, x, out, blocks, f,
-                         p.slices, s);
+template <typename T, int TN, int CU>
+int launch_shape(const void* job_offsets, const void* w_blocks,
+                 const void* u_senders, const void* x, void* out,
+                 int num_tiles, int f, cudaStream_t s) {
+  if (num_tiles > 0 && f > 0) {
+    const count_block::Plan p = count_block::plan<T>(f, x);
+    const int blocks = num_tiles * (TN / count_block::WARPS) * p.slices;
+    if (p.vec == 4)
+      launch_vec<T, TN, CU, 4>(job_offsets, w_blocks, u_senders, x, out,
+                               blocks, f, p.slices, s);
+    else if (p.vec == 2)
+      launch_vec<T, TN, CU, 2>(job_offsets, w_blocks, u_senders, x, out,
+                               blocks, f, p.slices, s);
+    else
+      launch_vec<T, TN, CU, 1>(job_offsets, w_blocks, u_senders, x, out,
+                               blocks, f, p.slices, s);
+  }
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* job_offsets, const void* w_blocks,
            const void* u_senders, const void* x, void* out, int num_tiles,
-           int f, int tn, void* stream) {
+           int f, int tn, int cu, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (tn != 64 && tn != 128 && tn != 256) return (int)cudaErrorInvalidValue;
-  if (num_tiles > 0 && f > 0) {
-    if (tn == 64)
-      launch_tn<T, 64>(job_offsets, w_blocks, u_senders, x, out, num_tiles, f,
-                       s);
-    else if (tn == 128)
-      launch_tn<T, 128>(job_offsets, w_blocks, u_senders, x, out, num_tiles,
-                        f, s);
-    else
-      launch_tn<T, 256>(job_offsets, w_blocks, u_senders, x, out, num_tiles,
-                        f, s);
-  }
-  return (int)cudaGetLastError();
+#define K1_SHAPE(TN_, CU_)                                                  \
+  if (tn == TN_ && cu == CU_)                                               \
+    return launch_shape<T, TN_, CU_>(job_offsets, w_blocks, u_senders, x,   \
+                                     out, num_tiles, f, s);
+  K1_SHAPE(64, 512)
+  K1_SHAPE(64, 1024)
+  K1_SHAPE(128, 512)
+  K1_SHAPE(128, 1024)
+  K1_SHAPE(256, 512)
+  K1_SHAPE(256, 1024)
+#undef K1_SHAPE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes).  w_blocks is (jobs, tn, 1024)
+// Plain C interface (loaded with ctypes).  w_blocks is (jobs, tn, cu)
 // int8, 16-byte aligned; out is (num_tiles * tn, f) in x's dtype,
 // allocated by the caller.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a tn without an instance.
+// cudaErrorInvalidValue for a (tn, cu) without an instance.
 extern "C" int dedup_spmm_f32(const void* job_offsets, const void* w_blocks,
                               const void* u_senders, const void* x, void* out,
-                              int num_tiles, int f, int tn, void* stream) {
+                              int num_tiles, int f, int tn, int cu,
+                              void* stream) {
   return launch<float>(job_offsets, w_blocks, u_senders, x, out, num_tiles, f,
-                       tn, stream);
+                       tn, cu, stream);
 }
 
 extern "C" int dedup_spmm_bf16(const void* job_offsets, const void* w_blocks,
                                const void* u_senders, const void* x, void* out,
-                               int num_tiles, int f, int tn, void* stream) {
+                               int num_tiles, int f, int tn, int cu,
+                               void* stream) {
   return launch<__nv_bfloat16>(job_offsets, w_blocks, u_senders, x, out,
-                               num_tiles, f, tn, stream);
+                               num_tiles, f, tn, cu, stream);
 }

@@ -23,6 +23,7 @@ def entry(device="cuda"):
     from gist_tpu_torch.data import synthetic_dataset
     from gist_tpu_torch.graph import graph_from_edges
     from gist_tpu_torch.models import sage
+    from gist_tpu_torch.train.common import seeded_init
     from gist_tpu_torch.utils import resolve_device
 
     dev = resolve_device(device)
@@ -30,7 +31,7 @@ def entry(device="cuda"):
     graph = graph_from_edges(ds.senders, ds.receivers, ds.n_nodes,
                              tiles=dev.type == "cuda").to(dev)
     cfg = sage.SAGEConfig(ds.in_feats, 64, ds.n_classes, n_layers=2)
-    params = sage.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    params = seeded_init(sage, cfg, 0, dev)
     x = torch.from_numpy(ds.features).to(dev)
 
     def fwd(params, x):

@@ -83,7 +83,8 @@ def run_distributed_ist(ds, model_cfg, tc, *, model, kind: str = "gcn",
     its results."""
     from gist_tpu_torch.convert import params_from_jax
     from gist_tpu_torch.graph import graph_from_edges
-    from gist_tpu_torch.train.common import reference_lr_schedule
+    from gist_tpu_torch.train.common import (reference_lr_schedule,
+                                             seeded_init)
 
     K = tc.num_subnet
     mesh = mesh or make_subnet_mesh(K, device)
@@ -96,10 +97,7 @@ def run_distributed_ist(ds, model_cfg, tc, *, model, kind: str = "gcn",
     test_mask = torch.from_numpy(ds.test_mask).to(dev)
 
     if init_params is None:
-        full_params = model.init(torch.Generator().manual_seed(tc.seed),
-                                 model_cfg)
-        full_params = {"layers": [{k: v.to(dev) for k, v in l.items()}
-                                  for l in full_params["layers"]]}
+        full_params = seeded_init(model, model_cfg, tc.seed, dev)
     else:
         full_params = params_from_jax(init_params, dev)
     sub_cfg = model_cfg.sub_config(split_input=tc.split_input,

@@ -35,7 +35,7 @@ from gist_tpu_torch.models import gcn
 from gist_tpu_torch.models.common import (masked_accuracy,
                                           masked_cross_entropy)
 from gist_tpu_torch.train.common import (TrainConfig, make_optimizer,
-                                         reference_lr_schedule)
+                                         reference_lr_schedule, seeded_init)
 from gist_tpu_torch.utils import resolve_device
 
 
@@ -91,9 +91,7 @@ class _Simulation:
         self.val_mask = torch.from_numpy(ds.val_mask).to(device)
         self.test_mask = torch.from_numpy(ds.test_mask).to(device)
         if init_params is None:
-            self.params = model.init(
-                torch.Generator(device=device).manual_seed(tc.seed),
-                model_cfg)
+            self.params = seeded_init(model, model_cfg, tc.seed, device)
         else:
             self.params = params_from_jax(init_params, device)
         self.sub_cfg = model_cfg.sub_config(

@@ -39,7 +39,10 @@ TILE_ROWS = 128
 # take 128, the chunked ones 64, the tile sweep of bench/kernel_tune.py
 # all three
 TILE_SIZES = (64, 128, 256)
+# the unique-sender slots a job: every layout builder's default is 1024;
+# the full-scale SpMM benchmark (bench/amazon_spmm.py) builds 512 too
 CU = 1024
+CUS = (512, 1024)
 # K1's and K2's launch shape (count_block::FT, count_block::WARPS): one
 # warp per destination row, ROWS_PER_BLOCK rows a block, and
 # ceil(F / FEATURE_TILE) column slices of each
@@ -132,7 +135,7 @@ def load_library(source: str, signatures: dict) -> ctypes.CDLL:
 def _load():
     global _lib
     if _lib is None:
-        sig = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        sig = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         _lib = load_library(SOURCE, {"dedup_spmm_f32": sig,
                                      "dedup_spmm_bf16": sig})
     return _lib
@@ -164,13 +167,13 @@ def _check(job_offsets, w_blocks, u_senders, x):
         raise ValueError(f"dedup_spmm expects (N, F) input, got "
                          f"{tuple(x.shape)}")
     if w_blocks.dim() != 3 or w_blocks.shape[1] not in TILE_SIZES \
-            or w_blocks.shape[2] != CU:
-        raise ValueError(f"dedup_spmm needs TN in {TILE_SIZES}, CU={CU} "
-                         f"blocks, got {tuple(w_blocks.shape[1:])}")
+            or w_blocks.shape[2] not in CUS:
+        raise ValueError(f"dedup_spmm needs TN in {TILE_SIZES} and CU in "
+                         f"{CUS} blocks, got {tuple(w_blocks.shape[1:])}")
     if (job_offsets.dtype, w_blocks.dtype, u_senders.dtype) != (
             torch.int32, torch.int8, torch.int32):
         raise TypeError("layout must be int32 offsets, int8 W, int32 senders")
-    if u_senders.shape[0] != w_blocks.shape[0] * CU:
+    if u_senders.shape[0] != w_blocks.shape[0] * w_blocks.shape[2]:
         raise ValueError("u_senders must hold CU slots per job")
     for t in (job_offsets, w_blocks, u_senders, x):
         if t.device != x.device:
@@ -188,8 +191,9 @@ def dedup_spmm(job_offsets: torch.Tensor, w_blocks: torch.Tensor,
                u_senders: torch.Tensor, x: torch.Tensor,
                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(num_tiles * TN, F) kernel-order aggregation in x's dtype, TN the
-    layout's tile rows (``w_blocks.shape[1]``), written into ``out`` when
-    given.
+    layout's tile rows (``w_blocks.shape[1]``, one of ``TILE_SIZES``) and
+    CU its slots a job (``w_blocks.shape[2]``, one of ``CUS``), written
+    into ``out`` when given.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the
     plain version; no other device is accepted."""
@@ -200,7 +204,7 @@ def dedup_spmm(job_offsets: torch.Tensor, w_blocks: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"dedup_spmm runs on cuda or cpu, not {x.device}")
     _check(job_offsets, w_blocks, u_senders, x)
-    num_tiles, tn = job_offsets.shape[0] - 1, w_blocks.shape[1]
+    num_tiles, tn, cu = job_offsets.shape[0] - 1, *w_blocks.shape[1:]
     shape = (num_tiles * tn, x.shape[1])
     if out is None:
         out = torch.empty(shape, dtype=x.dtype, device=x.device)
@@ -213,7 +217,7 @@ def dedup_spmm(job_offsets: torch.Tensor, w_blocks: torch.Tensor,
         lib.dedup_spmm_bf16
     err = fn(job_offsets.data_ptr(), w_blocks.data_ptr(),
              u_senders.data_ptr(), x.data_ptr(), out.data_ptr(),
-             num_tiles, x.shape[1], tn,
+             num_tiles, x.shape[1], tn, cu,
              torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"dedup_spmm launch failed: CUDA error {err}")

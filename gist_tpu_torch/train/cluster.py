@@ -37,7 +37,8 @@ from gist_tpu_torch.models.common import (masked_accuracy,
                                           masked_cross_entropy, micro_f1)
 from gist_tpu_torch.sampler import ClusterSampler, stack_batches
 from gist_tpu_torch.train.capture import Captured, GraphCache
-from gist_tpu_torch.train.common import TrainConfig, make_optimizer
+from gist_tpu_torch.train.common import (TrainConfig, make_optimizer,
+                                         seeded_init)
 from gist_tpu_torch.train.ist_cluster import _RoundCollector
 from gist_tpu_torch.utils import prefetch, resolve_device
 
@@ -79,8 +80,7 @@ def train_cluster_gcn(
     test_mask = torch.from_numpy(ds.test_mask).to(eval_dev)
 
     if init_params is None:
-        params = model.init(torch.Generator(device=dev).manual_seed(tc.seed),
-                            model_cfg)
+        params = seeded_init(model, model_cfg, tc.seed, dev)
     else:
         params = params_from_jax(init_params, dev)
     leaves = [t.requires_grad_(True)

@@ -62,6 +62,16 @@ def make_optimizer(params: Iterable[torch.Tensor], lr: float,
                             foreach=on_card)
 
 
+def seeded_init(model, cfg, seed: int, device) -> dict:
+    """``model.init`` drawn from a CPU generator seeded with ``seed``,
+    then moved to ``device``: the same params on every device, as the
+    reference's ``PRNGKey`` draw (a CUDA generator draws other
+    numbers from the same seed)."""
+    p = model.init(torch.Generator().manual_seed(seed), cfg)
+    return {"layers": [{k: v.to(device) for k, v in layer.items()}
+                       for layer in p["layers"]]}
+
+
 def write_results(results: dict, path: Optional[str]) -> None:
     """Write a result record as JSON, stamped with the hardware."""
     if path is None:

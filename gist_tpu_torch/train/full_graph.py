@@ -39,7 +39,7 @@ from gist_tpu_torch.models import gcn
 from gist_tpu_torch.models.common import masked_accuracy, masked_cross_entropy
 from gist_tpu_torch.train.capture import Captured
 from gist_tpu_torch.train.common import (TrainConfig, make_optimizer,
-                                         reference_lr_schedule)
+                                         reference_lr_schedule, seeded_init)
 from gist_tpu_torch.utils import resolve_device
 
 
@@ -83,8 +83,7 @@ def train_full_graph(
     test_mask = torch.from_numpy(ds.test_mask).to(dev)
 
     if init_params is None:
-        params = model.init(torch.Generator(device=dev).manual_seed(tc.seed),
-                            model_cfg)
+        params = seeded_init(model, model_cfg, tc.seed, dev)
     else:
         params = params_from_jax(init_params, dev)
     leaves = [t.requires_grad_(True)

@@ -62,7 +62,8 @@ from gist_tpu_torch.train.checkpoint import (generator_state,
                                              load_checkpoint,
                                              restore_generator,
                                              save_checkpoint)
-from gist_tpu_torch.train.common import TrainConfig, reference_lr_schedule
+from gist_tpu_torch.train.common import (TrainConfig, reference_lr_schedule,
+                                         seeded_init)
 from gist_tpu_torch.utils import draw_seed, resolve_device
 
 
@@ -162,8 +163,7 @@ def train_ist_cluster(
     test_mask = torch.from_numpy(ds.test_mask).to(dev)
 
     if init_params is None:
-        full_params = model.init(
-            torch.Generator(device=dev).manual_seed(tc.seed), model_cfg)
+        full_params = seeded_init(model, model_cfg, tc.seed, dev)
     else:
         full_params = params_from_jax(init_params, dev)
     if lsgd:

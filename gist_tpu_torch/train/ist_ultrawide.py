@@ -9,12 +9,16 @@ sampler, the partition draws and the merge; rank 0 evaluates and saves,
 and every rank returns rank 0's results.  Each process holds its own
 copy of the dataset and of the full-width params.
 
-With ``checkpoint_dir`` every eval round saves the params, the round
-and the dropout generator's state (:mod:`gist_tpu_torch.train.
-checkpoint`) and rewrites ``progress.json``, the partial result record;
-a rerun with the same arguments resumes after the newest round,
-replaying the partition draws and the batch stream the finished rounds
-consumed, and reproduces the uninterrupted run.
+With ``checkpoint_dir`` every eval round saves the params, the round,
+the dropout generator's state and the run's record so far (its
+per-round and per-eval lists, :data:`HISTORY_KEYS`, and its train time;
+:mod:`gist_tpu_torch.train.checkpoint`) and rewrites ``progress.json``,
+the partial result record; a rerun with the same arguments resumes
+after the newest round, replaying the partition draws and the batch
+stream the finished rounds consumed, reproduces the uninterrupted run,
+and returns the whole run's record: the checkpoint's rounds, then its
+own.  A finished run's checkpoint trains nothing and returns its saved
+record.
 """
 
 from __future__ import annotations
@@ -57,6 +61,12 @@ from gist_tpu_torch.utils import draw_seed, resolve_device
 # the CPU takes the chunked host forward (sage.apply_chunked_host): the
 # plain forward's N x 2h fp32 concat would not fit comfortably in RAM.
 CHUNKED_EVAL_MIN_ELEMENTS = 2 ** 28
+
+# the lists of the result record that a checkpoint carries, so that a
+# resumed run returns the whole run's curve and timing
+HISTORY_KEYS = ("val_accs", "test_accs", "losses", "round_wall_s",
+                "host_prep_s", "device_sync_s", "eval_rounds",
+                "train_time_at_eval", "eval_wall_s", "loadavg_1m", "rss_gb")
 
 
 def train_ist_ultrawide(
@@ -185,6 +195,8 @@ def train_ist_ultrawide(
     generator = torch.Generator(device=dev).manual_seed(tc.dropout_seed)
 
     start_round = 0
+    history = {key: [] for key in HISTORY_KEYS}
+    total_time = 0.0
     if checkpoint_dir:
         ck = latest_round_dir(checkpoint_dir)
         if ck is not None:
@@ -192,6 +204,10 @@ def train_ist_ultrawide(
             full_params = params_to_host(state["params"])
             restore_generator(generator, state["drop_gen"])
             start_round = int(state["round"]) + 1
+            if "history" in state:
+                history.update({key: list(state["history"][key])
+                                for key in HISTORY_KEYS})
+                total_time = float(state["history"]["train_time"])
             # replay the randomness the finished rounds consumed (the
             # partition draws and the cluster order), so the sequence
             # continues unchanged; the replayed batches stay on the host
@@ -202,14 +218,14 @@ def train_ist_ultrawide(
                 print(f"resumed from {ck} (round {start_round})",
                       flush=True)
 
-    total_time = 0.0
-    val_accs, test_accs, losses = [], [], []
-    round_wall, host_prep, device_sync = [], [], []
-    eval_rounds, train_time_at_eval, eval_wall = [], [], []
+    (val_accs, test_accs, losses, round_wall, host_prep, device_sync,
+     eval_rounds, train_time_at_eval, eval_wall,
+     # per-round 1-min load average and peak RSS, so round-wall drift
+     # can be told apart from a concurrent job on the host
+     loadavg_1m, rss_gb) = (history[key] for key in HISTORY_KEYS)
+    # the batches this call collected (a resumed call's replay is not
+    # counted)
     edges_per_batch = []
-    # per-round 1-min load average and peak RSS, so round-wall drift
-    # can be told apart from a concurrent job on the host
-    loadavg_1m, rss_gb = [], []
 
     def _sysstat():
         import resource
@@ -237,7 +253,8 @@ def train_ist_ultrawide(
             return
         save_checkpoint(os.path.join(checkpoint_dir, f"round_{rnd}"),
                         {"params": full_params, "round": rnd,
-                         "drop_gen": generator_state(generator)})
+                         "drop_gen": generator_state(generator),
+                         "history": {**history, "train_time": total_time}})
         # the partial record: a run cut later still leaves its curve and
         # timing on disk (written whole, then renamed)
         part = {
@@ -256,13 +273,13 @@ def train_ist_ultrawide(
             json.dump(part, f)
         os.replace(pp + ".tmp", pp)
 
-    if start_round >= n_rounds:
-        # a finished run's checkpoint: evaluate it only
+    if start_round >= n_rounds and not val_accs:
+        # a finished run's checkpoint without its record: evaluate it only
         va, ta = evaluate(full_params)
         val_accs.append(va)
         test_accs.append(ta)
         losses.append(float("nan"))
-    else:
+    elif start_round < n_rounds:
         batches = collect()
     next_batches = None
     for rnd in range(start_round, n_rounds):

@@ -221,13 +221,14 @@ def test_b1_keeps_g_r_in_registers():
 
 
 def test_k1_instances_match_tile_sizes():
-    """K1's source has one instance per tile size the wrapper accepts
-    (``dedup_spmm.TILE_SIZES``) and refuses any other."""
+    """K1's source has one instance per tile size and slot count the
+    wrapper accepts (``dedup_spmm.TILE_SIZES`` x ``dedup_spmm.CUS``) and
+    refuses any other."""
     text = _read(dedup_spmm.SOURCE)
     launch = _body(text, "launch")
-    sizes = sorted({int(m) for m in re.findall(r"launch_tn<T, (\d+)>",
-                                               launch)})
-    assert tuple(sizes) == dedup_spmm.TILE_SIZES
-    guard = re.search(r"if \((tn != \d+(?: && tn != \d+)*)\)", launch)
-    assert guard and sorted(int(v) for v in re.findall(
-        r"\d+", guard.group(1))) == sizes
+    shapes = sorted((int(tn), int(cu)) for tn, cu in re.findall(
+        r"K1_SHAPE\((\d+), (\d+)\)", launch))
+    assert shapes == sorted((tn, cu) for tn in dedup_spmm.TILE_SIZES
+                            for cu in dedup_spmm.CUS)
+    assert launch.index("return (int)cudaErrorInvalidValue;") > \
+        launch.rindex("K1_SHAPE(")

@@ -115,21 +115,28 @@ def _tc(n_epochs):
 
 
 def test_ultrawide_resume_equals_uninterrupted(tmp_path):
+    """The resumed call returns the whole run's record: the cut call's
+    rounds as it returned them, then its own, equal to the uninterrupted
+    run's."""
     ck = str(tmp_path / "uw")
     full = _uw(_tc(8))
     cut = _uw(_tc(4), ck)
     assert len(cut["losses"]) == 2 < len(full["losses"])
     resumed = _uw(_tc(8), ck)
-    for key in ("losses", "val_accs", "test_accs"):
-        assert cut[key] + resumed[key] == full[key], key
-    assert resumed["eval_rounds"] == full["eval_rounds"][2:]
+    for key in ("losses", "val_accs", "test_accs", "eval_rounds"):
+        assert resumed[key][:2] == cut[key], key
+        assert resumed[key] == full[key], key
+    for key in ("round_wall_s", "train_time_at_eval", "rss_gb"):
+        assert resumed[key][:2] == cut[key], key
+        assert len(resumed[key]) == len(full[key]), key
+    assert resumed["train_time"] >= cut["train_time"]
     prog = json.loads((tmp_path / "uw" / "progress.json").read_text())
     assert prog["round"] == 3 and prog["losses"] == resumed["losses"]
-    assert len(prog["rss_gb"]) == len(prog["loadavg_1m"]) == 2
-    # a finished run's checkpoint: eval only
+    assert len(prog["rss_gb"]) == len(prog["loadavg_1m"]) == 4
+    # a finished run's checkpoint: nothing trained, its record returned
     again = _uw(_tc(8), ck)
-    assert np.isnan(again["losses"]).all()
-    assert again["val_accs"] == [full["val_accs"][-1]]
+    for key in ("losses", "val_accs", "test_accs", "round_wall_s"):
+        assert again[key] == resumed[key], key
 
 
 def test_ultrawide_resume_tracks_jax(tmp_path):
@@ -148,11 +155,13 @@ def test_ultrawide_resume_tracks_jax(tmp_path):
     tck = str(tmp_path / "torch")
     tcut = _uw(_tc(4), tck, dropout=0.0, init_params=init)
     tres = _uw(_tc(8), tck, dropout=0.0, init_params=init)
-    assert len(tres["losses"]) == len(jres["losses"]) == 2
-    np.testing.assert_allclose(tcut["losses"] + tres["losses"],
+    # the port's resumed call returns the whole run, JAX's its own rounds
+    assert len(jres["losses"]) == 2 and len(tres["losses"]) == 4
+    assert tres["losses"][:2] == tcut["losses"]
+    np.testing.assert_allclose(tres["losses"],
                                jcut["losses"] + jres["losses"], rtol=1e-4)
     n_val = int(load_dataset("synth-tiny").val_mask.sum())
-    np.testing.assert_allclose(tres["val_accs"], jres["val_accs"],
+    np.testing.assert_allclose(tres["val_accs"][2:], jres["val_accs"],
                                atol=1.0 / n_val + 1e-9)
 
 

@@ -956,8 +956,9 @@ def test_checkpoint_cuda_generator_round_trip(cuda, tmp_path):
 
 
 def test_ultrawide_resume_on_card(cuda, tmp_path, monkeypatch):
-    """Cut after round 1 and resumed to round 3 on the card: the tail
-    equals the uninterrupted run's, dropout masks drawn on the card.
+    """Cut after round 1 and resumed to round 3 on the card: the
+    resumed call's record (the whole run's) equals the uninterrupted
+    run's, dropout masks drawn on the card.
     Every batch carries the dedup layout, so the steps run K1, which
     sums in a fixed order (the segment path's atomics would move the
     last bits between any two runs)."""
@@ -981,8 +982,10 @@ def test_ultrawide_resume_on_card(cuda, tmp_path, monkeypatch):
     assert K.launches > 0
     cut = run(4, str(tmp_path))
     resumed = run(8, str(tmp_path))
-    assert cut["losses"] + resumed["losses"] == full["losses"]
-    assert cut["val_accs"] + resumed["val_accs"] == full["val_accs"]
+    # the resumed call returns the whole run: the cut call's rounds first
+    assert resumed["losses"][:len(cut["losses"])] == cut["losses"]
+    assert resumed["losses"] == full["losses"]
+    assert resumed["val_accs"] == full["val_accs"]
 
 
 def test_cluster_gcn_use_pp_through_kernel(cuda, monkeypatch):
@@ -1208,3 +1211,86 @@ def test_sharded_aggregate_through_k1_on_one_rank(cuda, tmp_path):
                                atol=1e-5 * float(want.abs().max()))
     torch.testing.assert_close(got_dx, want_dx, rtol=1e-5,
                                atol=1e-5 * float(want_dx.abs().max()))
+
+
+# --- K1 at CU 512, and the trainers' device-independent init -------------
+
+
+@pytest.mark.parametrize("tn", [64, 128, 256])
+@pytest.mark.parametrize("case", ["several_tiles", "multi_job"])
+@pytest.mark.parametrize("dtype,f", [(torch.float32, 100),
+                                     (torch.float32, 602),
+                                     (torch.bfloat16, 100)])
+def test_kernel_cu512_matches_plain(cuda, tn, case, dtype, f):
+    """K1 on layouts of 512 slots a job (the full-scale SpMM benchmark's
+    ``SPMM_CU=512``) against its plain walk: 1e-5 relative to the plain
+    result's max in fp32 (1e-2 bf16), two launches bitwise equal; every
+    tile's jobs are at least those of the CU-1024 layout."""
+    rng = np.random.default_rng(512 + tn)
+    s, r, n = _edges(case, rng)
+    d = _build_dedup_tiles(s, r, n, tile_rows=tn, cu=512, reorder=False)
+    d1024 = _build_dedup_tiles(s, r, n, tile_rows=tn, reorder=False)
+    assert tuple(d.w_blocks.shape[1:]) == (tn, 512)
+    assert d.w_blocks.shape[0] >= d1024.w_blocks.shape[0]
+    d = d.to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32))
+    x = x.to(dtype).to(cuda)
+    got = K.dedup_spmm(d.job_offsets, d.w_blocks, d.u_senders, x)
+    again = K.dedup_spmm(d.job_offsets, d.w_blocks, d.u_senders, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = K.dedup_spmm_reference(d.job_offsets, d.w_blocks, d.u_senders,
+                                  x)
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def test_default_init_is_the_same_on_card_and_cpu(cuda, monkeypatch,
+                                                  tmp_path):
+    """Each single-card trainer (Cluster-GCN, full graph, IST over
+    clusters, the IST simulation) and the graft entry draws its default
+    params from a CPU generator and moves them to the card, so they equal
+    the CPU's bit for bit; dropout generators stay on the card."""
+    from gist_tpu_torch import graft_entry
+    from gist_tpu_torch.data import synthetic_dataset
+    from gist_tpu_torch.ist.simulate import train_ist_simulation
+    from gist_tpu_torch.models import gcn, sage
+    from gist_tpu_torch.train.cluster import train_cluster_gcn
+    from gist_tpu_torch.train.common import TrainConfig, seeded_init
+    from gist_tpu_torch.train.full_graph import train_full_graph
+    from gist_tpu_torch.train.ist_cluster import train_ist_cluster
+
+    drawn = []
+    for model in (sage, gcn):
+        def init(generator, cfg, _orig=model.init):
+            drawn.append(generator.device.type)
+            return _orig(generator, cfg)
+        monkeypatch.setattr(model, "init", init)
+    ds = synthetic_dataset("synth-tiny")
+    scfg = sage.SAGEConfig(ds.in_feats, 16, ds.n_classes, n_layers=2)
+    gcfg = gcn.GCNConfig(ds.in_feats, 16, ds.n_classes, n_layers=1)
+    tc = TrainConfig(n_epochs=1)
+    ist = TrainConfig(n_epochs=2, num_subnet=2, iter_per_site=1)
+    runs = {
+        "cluster": lambda: train_cluster_gcn(ds, scfg, tc, psize=4,
+                                             batch_size=2, device="cuda",
+                                             verbose=False),
+        "full_graph": lambda: train_full_graph(ds, gcfg, tc, device="cuda",
+                                               verbose=False),
+        "ist_cluster": lambda: train_ist_cluster(
+            ds, scfg, ist, psize=4, batch_size=2, device="cuda",
+            verbose=False),
+        "ist_simulation": lambda: train_ist_simulation(
+            ds, gcfg, ist, device="cuda", verbose=False),
+        "graft_entry": lambda: graft_entry.entry("cuda"),
+    }
+    for name, fn in runs.items():
+        drawn.clear()
+        fn()
+        assert drawn and set(drawn) == {"cpu"}, (name, drawn)
+    for model, cfg in ((sage, scfg), (gcn, gcfg)):
+        on_card = seeded_init(model, cfg, 3, cuda)
+        on_cpu = seeded_init(model, cfg, 3, "cpu")
+        for lc, lh in zip(on_card["layers"], on_cpu["layers"]):
+            for k in lh:
+                assert lc[k].device.type == "cuda"
+                assert torch.equal(lc[k].cpu(), lh[k])

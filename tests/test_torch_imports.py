@@ -10,6 +10,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gist_tpu")
 SOURCES = sorted((ROOT / "gist_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_ab.py", ROOT / "chip_flagship.py",
+    ROOT / "chip_fullscale.py",
     ROOT / "bench_torch.py"]
 
 

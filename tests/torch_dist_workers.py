@@ -396,3 +396,11 @@ def multihost(rank, world, payload):
     dist.all_reduce(t)
     again = init_multihost(device="cpu")
     return bare, ok, dist.get_world_size(), float(t), again
+
+
+def ist_2d_script(rank, world, payload):
+    """``bench/ist_sharded_2d.py:run`` on this world from the payload's
+    init and boundaries (the 2-D run and its 1-D control)."""
+    from gist_tpu_torch.bench.ist_sharded_2d import run
+    return run(_dataset("synth-tiny"), "cpu", init_params=payload["init"],
+               boundaries=payload["bnds"], **payload["cfg"])
