@@ -38,7 +38,10 @@ raising on failure:
     graph must agree, counting K2 launches;
 12. full-scale main path: ``train_full_graph``, GCN h256, 6 epochs on
     synth-reddit (46.8M edges with self loops) through the chunked
-    layouts, counting K1 launches (4 C_f + 2 C_t per epoch); then K1 per
+    layouts, counting K1 launches (4 C_f + 2 C_t per epoch); the dataset
+    and its chunked pair are built on the host by a child process
+    started after the build phase (``HostBuilds``), so the build runs
+    beside the phases before this one; then K1 per
     chunk on those layouts, forward and transpose at F=256 and F=41,
     against its plain version and the segment aggregation, with times
     beside one ``torch.sparse.mm``;
@@ -73,14 +76,14 @@ raising on failure:
     K1 9 launches a step trained in every run;
 18. uw_cli_chunked_eval (run last): ``python -m
     gist_tpu_torch.cli.ist_distrib --ultra-wide`` as a function, SAGE
-    h2048, 2 hidden layers (4 before, cut to keep the script's time),
-    K=8, 1 round of 10 steps a subnet on synth-reddit (psize 100, batch
-    10: K1 on every batch, 5 launches a step; 2 rounds of 5 before) with
-    a checkpoint and the chunked host
-    eval; then ``cli.infer`` on the last round on the
-    card, and the chunked host forward of the same params held against
-    the card's logits at rtol = atol = 0.05, with both walls, the
-    host's ``nproc`` and torch threads.
+    h2048, 1 hidden layer (4, then 2 before, cut to keep the script's
+    time), K=8, 1 round of 10 steps a subnet on synth-reddit (psize 100,
+    batch 10: K1 on every batch, 3 launches a step) with a checkpoint
+    and the chunked host eval; then ``cli.infer`` on the last round on
+    the card (its ``sage.apply`` timed: the card's eval wall), and the
+    chunked host forward of the same params held against the card's
+    logits at rtol = atol = 0.05, with both walls, the host's ``nproc``
+    and torch threads.
 19. cluster_pp (run after phase 6): ``train_cluster_gcn`` with SAGE
     h256, 2 layers on phase 6's clusters, once with ``use_pp`` (K1 4
     launches a step, the first layer skipping its aggregation) and once
@@ -102,7 +105,8 @@ raising on failure:
     that replay CUDA graphs follow every phase that reads kernel times
     from a ``torch.profiler`` trace, since traces taken after graphs had
     run were seen to miss kernel events): ``train_cluster_gcn`` with SAGE
-    h256, 2 layers, dropout 0 on phase 6's clusters for 3 epochs, the
+    h256, 2 layers, dropout 0 on phase 6's clusters for 2 epochs (3
+    before, cut to keep the script's time), the
     per-batch loop against ``scan_batches=True`` (each epoch's 5 steps
     one CUDA-graph replay): losses within 1e-5 relative, K1 25 launches
     in every replay by the profiler, capture seconds, steady epoch
@@ -124,7 +128,8 @@ raising on failure:
     full-scale chunked graph (K1 4 C_f + 2 C_t a replay), the same
     checks, and K1 per chunk replayed against its plain walk;
 27. sharded_graph (phases 27-29 run before phase 18, with ranks spawned
-    on the one card; each prints its backend and world size): on two
+    on the one card, the two-rank world beside the four-rank one of
+    phase 29; each prints its backend and world size): on two
     ranks (gloo: NCCL refuses two ranks on one device) the sharded
     aggregation of synth-reddit-small at F=602 against the flat one,
     forward and gradient (1e-5; K1 one forward and one transpose a rank),
@@ -137,7 +142,10 @@ raising on failure:
     process; 1e-5, GCN's later epochs 1e-4), with launches per rank, and
     a GCN run with a bf16 halo as the control that reads over those bars;
     on one rank also the sharded aggregation's time against the flat K1
-    aggregation's;
+    aggregation's; on each rank the bytes/s of a ring exchange of its
+    F=602 halo rows (``bench/scaling_projection.py:ring_shift_rate``),
+    the link these ranks use (gloo, staged through host memory), which
+    phase 32 projects with;
 28. ist_mesh: ``train_ist_cluster(mesh=...)`` (SAGE h256 and GAT h512,
     K=2, 2 ranks) and ``train_ist_ultrawide(sequential=False)`` (the
     main path's SAGE h2048 K=8, 8 ranks, 1 round) against their
@@ -190,6 +198,27 @@ raising on failure:
     (losses 1e-5).  Those two evaluate on the card, not on the host as
     the scripts do at full length.  ``ist_sharded_2d`` runs through
     phase 29.
+32. remaining_scripts (run after phases 27-29, on the graphs earlier
+    phases hold): ``scaling_projection`` on synth-reddit-small at D = 2
+    and 4, its t1 K1's forward measured here at fp32 and bf16, its link
+    rate phase 27's measured ring rate (the slower rank's), named so;
+    ``record_r2`` cut to its reddit-small full-graph SAGE fp32 run at 3
+    of 60 epochs (K1) and the ultra-wide point h64 K=2 at one round (K1
+    forced, ``R2_UW``), each against its trainer called directly (losses
+    1e-5 relative); both Amazon2M cost models on synth-amazon2m-small at
+    TN 64, on the order of phase 31's v2 layout, with their gather and
+    stream rates and permute time measured on the card in the phase.
+
+The layouts of phases 10, 12 and 31, and phase 32's cost-model counts
+and partitions, are built on the host by one child process started
+after the build phase (``host_builds``, ``HostBuilds``), which saves
+each to ``scratch_chip/`` as soon as it is built; each phase loads its
+own, so those builds run beside the phases before them.
+
+Every world of spawned ranks runs within ``SPAWN_TIMEOUT_S``: past it
+every rank is ended with its process group and the phase raises
+(``procs.join_spawned``); each rank's process group times out at three
+quarters of it.
 
 Replayed outputs are held against the plain versions at 1e-5 relative to
 the plain result's max, after the outputs were overwritten with NaN.
@@ -722,44 +751,54 @@ def phase_uw_resume(torch, ds):
     return launches
 
 
-# Phase 18's depth: 2 hidden layers (4 before), which halves
-# its chunked host eval, the script's largest single cost.
-UW_CLI_LAYERS = 2
+# Phase 18's depth: 1 hidden layer (4, then 2 before), which cuts its
+# chunked host eval, the script's largest single cost.  10 steps a
+# subnet: one local epoch of synth-reddit's 10 batches, so one round.
+UW_CLI_LAYERS = 1
+UW_CLI_STEPS = 10
+# its partitions (psize 100, the CLI's seed 3) come from the host builds
+UW_CLI_PSIZE, UW_CLI_SEED = 100, 3
 
 
-def phase_uw_cli_chunked_eval(torch, device):
+def phase_uw_cli_chunked_eval(torch, device, builds):
     """The entry point and the serving path: ``cli.ist_distrib
-    --ultra-wide`` trains SAGE h2048 (2 hidden layers, K=8) for 1 round
+    --ultra-wide`` trains SAGE h2048 (1 hidden layer, K=8) for 1 round
     on synth-reddit with a checkpoint; N x h is over the trainer's
     threshold, so each eval runs the chunked host forward (its output is
     kept as it returns).  Then ``cli.infer`` evaluates the last round on
-    the card with the plain ``sage.apply``, and the trainer's last
-    chunked host forward, of the same params, is held against the card's
-    logits at rtol = atol = 0.05."""
+    the card with the plain ``sage.apply`` (timed there: the card's eval
+    wall), and the trainer's last chunked host forward, of the same
+    params, is held against the card's logits at rtol = atol = 0.05.
+    The CLI reads its partitions from the cache ``builds``
+    (:class:`HostBuilds`) filled."""
     import tempfile
 
     import numpy as np
 
     from gist_tpu_torch.cli import infer, ist_distrib
-    from gist_tpu_torch.convert import params_from_jax
-    from gist_tpu_torch.data import load_dataset
-    from gist_tpu_torch.graph import graph_from_edges
     from gist_tpu_torch.models import sage
     from gist_tpu_torch.ops import dedup_spmm as K
     from gist_tpu_torch.sampler import TILES_MIN_EDGES
     from gist_tpu_torch.train import ist_ultrawide as UW
-    from gist_tpu_torch.train.checkpoint import (latest_round_dir,
-                                                 load_checkpoint,
-                                                 params_to_host)
 
     model = ["--dataset", "synth-reddit", "--n-hidden", "2048",
              "--n-layers", str(UW_CLI_LAYERS), "--normalize", "--use-f1"]
     chunked, real = [], sage.apply_chunked_host
+    served_apply, device_eval_s = sage.apply, []
 
     def keep(*args, **kw):
         chunked.append(real(*args, **kw))
         return chunked[-1]
 
+    def timed_apply(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = served_apply(*args, **kw)
+        torch.cuda.synchronize()
+        device_eval_s.append(time.time() - t0)
+        return out
+
+    parts = builds.get(torch, "uw_cli_partitions")
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "ck")
         K.launches = 0
@@ -767,50 +806,40 @@ def phase_uw_cli_chunked_eval(torch, device):
         sage.apply_chunked_host = keep
         try:
             r = ist_distrib.main(model + [
-                "--ultra-wide", "--num_subnet", "8", "--iter_per_site", "10",
-                "--psize", "100", "--batch-size", "10", "--n-epochs", "8",
-                "--lr", "1e-2", "--dropout", "0.2", "--weight-decay", "0",
-                "--checkpoint-dir", ck])
+                "--ultra-wide", "--num_subnet", "8", "--iter_per_site",
+                str(UW_CLI_STEPS), "--psize", str(UW_CLI_PSIZE),
+                "--batch-size", "10", "--rnd-seed", str(UW_CLI_SEED),
+                "--n-epochs", "8", "--lr", "1e-2", "--dropout", "0.2",
+                "--weight-decay", "0", "--checkpoint-dir", ck,
+                "--cache-dir", parts["cache_dir"]])
         finally:
             sage.apply_chunked_host = real
         torch.cuda.synchronize()
         train_wall = time.time() - t0
         launches = K.launches
-        steps = len(r["round_wall_s"]) * 8 * 10
+        steps = len(r["round_wall_s"]) * 8 * UW_CLI_STEPS
         logits_path = os.path.join(tmp, "logits.npy")
         t0 = time.time()
-        served = infer.main(model + ["--checkpoint-dir", ck,
-                                     "--logits-out", logits_path])
+        sage.apply = timed_apply
+        try:
+            served = infer.main(model + ["--checkpoint-dir", ck,
+                                         "--logits-out", logits_path])
+        finally:
+            sage.apply = served_apply
         infer_wall = time.time() - t0
         card = np.load(logits_path)
-        params = params_to_host(load_checkpoint(latest_round_dir(ck))
-                                ["params"])
 
     if len(chunked) != 1:
         raise RuntimeError(f"the trainer ran {len(chunked)} chunked evals, "
                            f"want one a round")
     host = chunked[-1]
-    ds = load_dataset("synth-reddit").normalize_features()
-    cfg = sage.SAGEConfig(ds.in_feats, 2048, ds.n_classes,
-                          n_layers=UW_CLI_LAYERS)
-    graph = graph_from_edges(ds.senders, ds.receivers, ds.n_nodes).to(device)
-    x = torch.from_numpy(ds.features).to(device)
-    p_dev = params_from_jax(params, device)
-    device_eval_s = []                 # a first call, then a second
-    with torch.no_grad():
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            sage.apply(p_dev, graph, x, cfg)
-            torch.cuda.synchronize()
-            device_eval_s.append(time.time() - t0)
-    del graph, x, p_dev
+    n_nodes = card.shape[0]
     err = np.abs(host - card)
     excess = float((err / (0.05 + 0.05 * np.abs(card))).max())
     nproc = procs.run_child(["nproc"], 60, capture_output=True, text=True)
-    row = {"phase": "uw_cli_chunked_eval", "nodes": ds.n_nodes,
-           "edges": ds.n_edges,
-           "activation_elements": ds.n_nodes * 2048,
+    row = {"phase": "uw_cli_chunked_eval", "nodes": n_nodes,
+           "n_layers": UW_CLI_LAYERS,
+           "activation_elements": n_nodes * 2048,
            "chunked_threshold": UW.CHUNKED_EVAL_MIN_ELEMENTS,
            "rounds": len(r["losses"]), "steps": steps,
            "k1_launches": launches, "losses": r["losses"],
@@ -831,11 +860,12 @@ def phase_uw_cli_chunked_eval(torch, device):
            "nproc": int(nproc.stdout.strip() or 0),
            "torch_threads": torch.get_num_threads()}
     emit(row)
-    if ds.n_nodes * 2048 <= UW.CHUNKED_EVAL_MIN_ELEMENTS:
+    if n_nodes * 2048 <= UW.CHUNKED_EVAL_MIN_ELEMENTS:
         raise RuntimeError("synth-reddit at h2048 did not reach the "
                            "chunked eval")
-    if len(r["losses"]) != 1:
-        raise RuntimeError(f"expected 1 round with an eval: {row}")
+    if len(r["losses"]) != 1 or len(device_eval_s) != 1:
+        raise RuntimeError(f"expected 1 round with an eval and one card "
+                           f"eval: {row}")
     # K1 a step: a forward aggregation a weight layer (n_layers + 1),
     # the same on the transpose but for layer 0's input
     per_step = 2 * UW_CLI_LAYERS + 1
@@ -845,7 +875,7 @@ def phase_uw_cli_chunked_eval(torch, device):
     if not all(e >= TILES_MIN_EDGES for e in r["edges_per_batch"]):
         raise RuntimeError("a batch fell under the layout's edge threshold")
     if not (np.isfinite(host).all() and np.isfinite(card).all()
-            and host.shape == card.shape == (ds.n_nodes, ds.n_classes)):
+            and host.shape == card.shape):
         raise RuntimeError("non-finite or misshapen logits")
     if excess > 1.0:
         raise RuntimeError(f"the chunked host eval left the card's logits: "
@@ -1450,15 +1480,15 @@ def _split_layouts(g, cu):
     return fwd, bwd, time.time() - t0
 
 
-def phase_split_kernels(torch, device, g):
+def phase_split_kernels(torch, device, g, builds):
     """K2 against its plain version on the synth-amazon2m-small split
     layouts (CU 1024 and 512), forward and transpose, F=100 in fp32 and
     bf16 and F=47 (the split path's layer-1 width) in fp32: every chunk
     in one pass, with times beside the plain walk's (the one call that
     is checked) and
-    one ``torch.sparse.mm`` on the node-order adjacency.  Returns the
-    rows and the CU=1024 layout pair (host tensors) for the split-path
-    phase."""
+    one ``torch.sparse.mm`` on the node-order adjacency.  The layouts
+    come from ``builds`` (:class:`HostBuilds`).  Returns the rows and
+    the CU=1024 layout pair (host tensors) for the split-path phase."""
     import numpy as np
 
     from gist_tpu_torch.ops import split_spmm as K2
@@ -1466,7 +1496,7 @@ def phase_split_kernels(torch, device, g):
     rng = np.random.default_rng(0)
     rows, keep = {}, None
     for cu in (1024, 512):
-        fwd, bwd, build_s = _split_layouts(g, cu)
+        fwd, bwd, build_s = builds.get(torch, f"split_{cu}")
         if cu == 1024:
             keep = (fwd, bwd)
         for direction, lay in (("fwd", fwd), ("bwd", bwd)):
@@ -1604,11 +1634,144 @@ def phase_split_path(torch, device, ds, g, split_pair):
     return k2s
 
 
-def phase_full_path(torch, device, ds):
+# Layouts that phases 10, 12 and 31 would build on the host, built by a
+# child process (``host_builds``) while the phases before them run.
+
+
+def host_builds(out_dir):
+    """The child's work, in the order the phases need it, each saved
+    (``torch.save``) to ``out_dir/<name>.pt`` as soon as it is built:
+    phase 10's split layout pairs of synth-amazon2m-small (CU 1024 and
+    512), phase 12's synth-reddit with self loops and its chunked layout
+    pair, phase 31's ``amazon_spmm`` layouts (threshold 0 and 128, CU 512
+    and 1024); for phase 32 the cost models' counts on the order of the
+    CU-1024 v2 layout, and the partitions of ``record_r2``'s ultra-wide
+    point (psize 1500) and of phase 18 (synth-reddit, psize 100), cached
+    in ``out_dir/partitions``.  Each item carries its build seconds."""
+    import numpy as np
+    import torch
+
+    from gist_tpu_torch.bench import amazon_spmm
+    from gist_tpu_torch.bench.amazon_split_analysis import (THRESHOLDS,
+                                                            split_counts)
+    from gist_tpu_torch.bench.amazon_tn_analysis import tn_counts
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.graph import graph_from_edges
+    from gist_tpu_torch.sampler import ClusterSampler
+    from gist_tpu_torch.train.full_graph import prepare_graph
+
+    def save(name, obj):
+        tmp = os.path.join(out_dir, f"{name}.tmp")
+        torch.save(obj, tmp)
+        os.replace(tmp, os.path.join(out_dir, f"{name}.pt"))
+
+    ds_a = load_dataset("synth-amazon2m-small")
+    g = graph_from_edges(ds_a.senders, ds_a.receivers, ds_a.n_nodes)
+    for cu in (1024, 512):
+        save(f"split_{cu}", _split_layouts(g, cu))
+    del g
+    t0 = time.time()
+    ds = load_dataset("synth-reddit", self_loop=True)
+    dataset_s = time.time() - t0
+    t0 = time.time()
+    graph = prepare_graph(ds, tiles=True)
+    save("full_graph", {"ds": ds, "graph": graph, "dataset_s": dataset_s,
+                        "layout_build_s": time.time() - t0})
+    del ds, graph
+    for threshold in (0, 128):
+        for cu in (512, 1024):
+            t0 = time.time()
+            dc = amazon_spmm.build_layout(ds_a, threshold=threshold, cu=cu,
+                                          chunk_rows=2 ** 13)
+            save(f"amazon_spmm_{threshold}_{cu}", (dc, time.time() - t0))
+            if (threshold, cu) == (0, 1024):
+                pos = dc.pos.numpy().astype(np.int64)
+    t0 = time.time()
+    save("cost_counts", {
+        "split": split_counts(64, ds_a.senders, ds_a.receivers, pos,
+                              THRESHOLDS),
+        "tn": tn_counts(64, pos[ds_a.senders], pos[ds_a.receivers]),
+        "seconds": time.time() - t0})
+    parts = os.path.join(out_dir, "partitions")
+    t0 = time.time()
+    ClusterSampler(ds_a, R2_UW_PSIZE, 10, cache_dir=parts, seed=0)
+    save("r2_partitions", {"cache_dir": parts, "seconds": time.time() - t0})
+    t0 = time.time()
+    ClusterSampler(load_dataset("synth-reddit"), UW_CLI_PSIZE, 10,
+                   cache_dir=parts, seed=UW_CLI_SEED)
+    save("uw_cli_partitions", {"cache_dir": parts,
+                               "seconds": time.time() - t0})
+
+
+class HostBuilds:
+    """:func:`host_builds` in a child process (``procs.run_child``, which
+    ends its group) that a thread of this process waits for.
+    :meth:`get` waits for one item and loads it; :meth:`close` joins the
+    child and raises if it failed.  Should this process exit first (a
+    phase raised), :meth:`stop` ends the child's group at exit."""
+
+    def __init__(self, out_dir, timeout=1200):
+        import atexit
+        import threading
+        self.out_dir, self.done, self.error = out_dir, None, None
+        self.waited = {}
+        os.makedirs(out_dir, exist_ok=True)
+        self.thread = threading.Thread(target=self._run, args=(timeout,),
+                                       daemon=True)
+        self.thread.start()
+        atexit.register(self.stop)
+
+    def stop(self):
+        """End the child's group if it still runs, and wait for the
+        thread."""
+        if self.thread.is_alive():
+            procs.kill([pid for pid, cmd in procs.descendants()
+                        if "chip_smoke.host_builds" in cmd])
+            self.thread.join(timeout=30)
+        shutil.rmtree(self.out_dir, ignore_errors=True)
+
+    def _run(self, timeout):
+        try:
+            self.done = procs.run_child(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.host_builds(sys.argv[1])", self.out_dir],
+                timeout, cwd=HERE, capture_output=True, text=True)
+        except BaseException as e:  # noqa: BLE001 - raised in close()
+            self.error = e
+
+    def close(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        if self.done.returncode:
+            raise RuntimeError(f"the host builds failed:\n"
+                               f"{self.done.stderr[-3000:]}")
+        shutil.rmtree(self.out_dir, ignore_errors=True)
+
+    def get(self, torch, name):
+        """Item ``name``, once the child has saved it; the seconds this
+        process waited for it go to ``waited``."""
+        path = os.path.join(self.out_dir, f"{name}.pt")
+        t0 = time.time()
+        while not os.path.exists(path) and self.thread.is_alive():
+            time.sleep(0.2)
+        if not os.path.exists(path):
+            self.close()
+            raise RuntimeError(f"the host builds ended without {name}")
+        self.waited[name] = time.time() - t0
+        # mapped, not read: the pages come in as the phase moves them to
+        # the card (the file stays readable once removed)
+        item = torch.load(path, weights_only=False, mmap=True)
+        os.remove(path)
+        return item
+
+
+def phase_full_path(torch, device, ds, graph, build):
     """The full-scale main path: ``train_full_graph`` with GCN h256, one
     hidden layer, dropout 0.5, lr 1e-2, weight decay 5e-4 and the LR
-    schedule, 6 epochs on synth-reddit with self loops.  The graph is
-    above ``HUGE_EDGES``, so ``prepare_graph`` builds the chunked pair
+    schedule, 6 epochs on synth-reddit with self loops, on ``graph``
+    (built by :class:`HostBuilds`, whose seconds ``build`` gives).
+    The graph is above ``HUGE_EDGES``, so it carries the chunked pair
     and K1 runs once per chunk: per epoch 4 x C_f launches (layers 0 and
     1, train and eval) and 2 x C_t (their backward).  Returns the
     launches, the graph on the card and the rows of the chunked-K1
@@ -1616,16 +1779,15 @@ def phase_full_path(torch, device, ds):
     from gist_tpu_torch.models.gcn import GCNConfig
     from gist_tpu_torch.ops import dedup_spmm as K
     from gist_tpu_torch.train.common import TrainConfig
-    from gist_tpu_torch.train.full_graph import prepare_graph, train_full_graph
+    from gist_tpu_torch.train.full_graph import train_full_graph
 
-    t0 = time.time()
-    graph = prepare_graph(ds)
-    layout_build_s = time.time() - t0
+    layout_build_s = build["layout_build_s"]
     if graph.dedup_c is None or graph.dedup_c_t is None:
         raise RuntimeError("synth-reddit did not get the chunked layouts")
     cf, ct = graph.dedup_c.n_chunks, graph.dedup_c_t.n_chunks
     emit({"phase": "full_path", "nodes": ds.n_nodes, "edges": ds.n_edges,
-          "layout_build_s": layout_build_s, "n_chunks": [cf, ct],
+          "layout_build_s": layout_build_s, "build_child": build,
+          "n_chunks": [cf, ct],
           "tiles_per_chunk": graph.dedup_c.tiles_per_chunk,
           "jobs_pad": graph.dedup_c.w_blocks.shape[1],
           "jobs": int(graph.dedup_c.job_offsets[:, -1].sum()),
@@ -2455,10 +2617,14 @@ def _replay_check(torch, launch, plain, tol=1e-5):
     return err, prof
 
 
+# Phase 23's depth: 2 epochs (3 before), the second one steady.
+SCAN_BATCHES_EPOCHS = 2
+
+
 def phase_scan_batches(torch, ds, sampler):
     """``train_cluster_gcn`` with SAGE h256, 2 layers, dropout 0 on the
     main path's clusters (psize 50, batch 10, K1 on every batch, 5
-    launches a step), 3 epochs, per-batch loop against
+    launches a step), 2 epochs, per-batch loop against
     ``scan_batches=True``: losses within 1e-5 relative (K1 sums in a
     fixed order); K1 in every replay 5 steps x 5 from the profiler, and
     the counter at capture (warm-up step and captured steps); capture
@@ -2481,7 +2647,7 @@ def phase_scan_batches(torch, ds, sampler):
     from gist_tpu_torch.train.ist_cluster import _RoundCollector
 
     cfg = SAGEConfig(100, 256, 47, n_layers=2, dropout=0.0)
-    tc = TrainConfig(lr=1e-2, weight_decay=0.0, n_epochs=3)
+    tc = TrainConfig(lr=1e-2, weight_decay=0.0, n_epochs=SCAN_BATCHES_EPOCHS)
     steps, per_step = 5, 5
 
     parts = os.path.join(HERE, "scratch_chip", "partitions")
@@ -2826,6 +2992,7 @@ def _rank_main(rank, world, work, backend, job, args):
 
     import torch
     import torch.distributed as dist
+    procs.own_group()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
@@ -2837,7 +3004,8 @@ def _rank_main(rank, world, work, backend, job, args):
     import torch._dynamo  # noqa: F401
     warm_s = time.time() - t0
     dist.init_process_group(backend, init_method=f"file://{work}/rdv",
-                            rank=rank, world_size=world)
+                            rank=rank, world_size=world,
+                            timeout=procs.rank_timeout(SPAWN_TIMEOUT_S))
     try:
         res = globals()[job](torch, rank, world, **args)
         with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
@@ -2846,12 +3014,16 @@ def _rank_main(rank, world, work, backend, job, args):
         dist.destroy_process_group()
 
 
-def _spawn(torch, world, job, **args):
-    """Run ``job`` on ``world`` ranks of this card (each its own process,
-    started with ``spawn``); returns (backend, [each rank's result],
-    seconds).  The kernels were built by the build phase, so no rank
-    compiles."""
-    import pickle
+# The seconds a world of phases 27-29 may take (each took 40-60 s on the
+# H100's machine); past it every rank is ended and the phase raises.
+SPAWN_TIMEOUT_S = 480
+
+
+def _spawn_start(torch, world, job, **args):
+    """Start ``job`` on ``world`` ranks of this card (each its own
+    process, started with ``spawn``); returns the handle
+    :func:`_spawn_wait` takes.  The kernels were built by the build
+    phase, so no rank compiles."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -2859,18 +3031,36 @@ def _spawn(torch, world, job, **args):
     work = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
     torch.cuda.empty_cache()
     t0 = time.time()
-    mp.start_processes(_rank_main, args=(world, work, backend, job, args),
-                       nprocs=world, start_method="spawn")
-    out, warm = [], []
-    for r in range(world):
-        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
-            res, warm_s = pickle.load(f)
-        out.append(res)
-        warm.append(warm_s)
-    shutil.rmtree(work, ignore_errors=True)
+    ctx = mp.start_processes(_rank_main,
+                             args=(world, work, backend, job, args),
+                             nprocs=world, join=False, start_method="spawn")
+    return ctx, job, world, backend, work, t0
+
+
+def _spawn_wait(handle):
+    """Wait for a :func:`_spawn_start` world (``SPAWN_TIMEOUT_S`` from
+    now; ``procs.join_spawned`` ends its ranks however the wait ends);
+    returns (backend, [each rank's result], seconds)."""
+    import pickle
+    ctx, job, world, backend, work, t0 = handle
+    try:
+        procs.join_spawned(ctx, SPAWN_TIMEOUT_S, f"phase job {job}")
+        out, warm = [], []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+                res, warm_s = pickle.load(f)
+            out.append(res)
+            warm.append(warm_s)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     emit({"phase": "spawn", "job": job, "world": world, "backend": backend,
           "seconds": time.time() - t0, "dynamo_import_s": warm})
     return backend, out, time.time() - t0
+
+
+def _spawn(torch, world, job, **args):
+    """:func:`_spawn_start` and :func:`_spawn_wait` in one."""
+    return _spawn_wait(_spawn_start(torch, world, job, **args))
 
 
 # The sharded CLI runs of phase 27 (synth-reddit-small, 3 epochs, dropout
@@ -2983,6 +3173,7 @@ def _sharded_graph_ranks(torch, rank, world):
     layout; then the three sharded CLI runs."""
     import numpy as np
 
+    from gist_tpu_torch.bench.scaling_projection import ring_shift_rate
     from gist_tpu_torch.data import load_dataset
     from gist_tpu_torch.ops import dedup_spmm as K
     from gist_tpu_torch.parallel import (build_sharded_graph, comm,
@@ -3037,6 +3228,8 @@ def _sharded_graph_ranks(torch, rank, world):
     err16 = (y16 - y32).abs()
     out["bf16_within_rounding"] = bool((err16 <= rounding).all())
     out["bf16_max_over_bound"] = float((err16 / rounding).max())
+    # the link these ranks use: a ring exchange of the halo rows at F=602
+    out["ring_rate"] = ring_shift_rate(sg, mesh, x.detach())
 
     # the sharded GAT attention: K4's partial softmax merged with the
     # boundary partials, against the segment path on the same halo
@@ -3397,8 +3590,10 @@ def phase_multi_rank(torch, power):
     single-card references run first in this process, then three worlds
     of spawned ranks: two (phase 27's ranks, phase 28's cluster-trainer
     meshes, phase 29's S=2 x G=1 reference), eight (phase 28's
-    ultra-wide mesh) and four (phase 29's 2 x 2 mesh).  Returns the
-    launches by phase and kernel, and K1's interior rows."""
+    ultra-wide mesh) and four (phase 29's 2 x 2 mesh), the two and the
+    four at once.  Returns the
+    launches by phase and kernel, K1's interior rows, and the ring rate
+    of phase 27's slower rank (``ring_shift_rate``)."""
     import tempfile
     t_ref = time.time()
     d1_times, d1_grads, d1_cli = _sharded_d1_in_parent(torch)
@@ -3407,11 +3602,17 @@ def phase_multi_rank(torch, power):
     loops = {name: _ist_run(torch, name, cache_dir)
              for name in _ist_mesh_runs()}
     ref_s = time.time() - t_ref
-    pair_backend, pair, pair_s = _spawn(torch, 2, "_job_pair",
-                                        cache_dir=cache_dir)
+    # the two- and four-rank worlds run at once, then the eight-rank one
+    pair_h = _spawn_start(torch, 2, "_job_pair", cache_dir=cache_dir)
+    two_d_h = _spawn_start(torch, 4, "_job_ist_2d")
+    try:
+        pair_backend, pair, pair_s = _spawn_wait(pair_h)
+    except BaseException:
+        procs.end_ranks(two_d_h[0].processes)
+        raise
+    b4, r4, s4 = _spawn_wait(two_d_h)
     uw_backend, uw, uw_s = _spawn(torch, 8, "_job_ist_mesh",
                                   names=["ultrawide"], cache_dir=cache_dir)
-    b4, r4, s4 = _spawn(torch, 4, "_job_ist_2d")
     shutil.rmtree(cache_dir, ignore_errors=True)
     emit({"phase": "multi_rank_worlds", "references_s": ref_s,
           "world2_s": pair_s, "world8_s": uw_s, "world4_s": s4})
@@ -3433,6 +3634,7 @@ def phase_multi_rank(torch, power):
           "grad_rel_err": r0["grad_rel_err"],
           "bf16_max_over_bound": [r["bf16_max_over_bound"]
                                   for r in sg_ranks],
+          "ring_rate": [r["ring_rate"] for r in sg_ranks],
           "gat_hybrid_rel_err": [r["gat_hybrid_rel_err"] for r in sg_ranks],
           "gat_k4_launches": [r["gat_k4_launches"] for r in sg_ranks],
           "step_grad_rel_err_vs_d1": [_grad_rel(r["grads_h256"],
@@ -3548,7 +3750,9 @@ def phase_multi_rank(torch, power):
     launches["ist_sharded_2d"] = {
         "K1": sum(r["launches"]["K1"] for r in runs_2d)
         + sum(r["script"]["launches"]["K1"] for r in r4)}
-    return launches, r0["k1_interior"]
+    ring = min((r["ring_rate"] for r in sg_ranks),
+               key=lambda v: v["bytes_per_s"])
+    return launches, r0["k1_interior"], ring
 
 
 # --- bench: the benchmark layer (gist_tpu_torch/bench/) ----------------
@@ -3825,16 +4029,16 @@ def phase_bench(torch, device, card):
 FULLSCALE_TOL = 1e-5
 
 
-def _fullscale_spmm(torch, device, ds_a, g_a):
-    """``amazon_spmm`` at threshold 0 and 128, CU 512 and 1024: rows."""
+def _fullscale_spmm(torch, device, ds_a, g_a, builds):
+    """``amazon_spmm`` at threshold 0 and 128, CU 512 and 1024, on the
+    layouts of ``builds`` (:class:`HostBuilds`): (rows, the host v2
+    layout at CU 1024, phase 32's locality order)."""
     from gist_tpu_torch.bench import amazon_spmm
-    rows = []
+    rows, v2 = [], None
     for threshold in (0, 128):
         for cu in (512, 1024):
             t0 = time.time()
-            dc = amazon_spmm.build_layout(ds_a, threshold=threshold, cu=cu,
-                                          chunk_rows=2 ** 13)
-            build_s = time.time() - t0
+            dc, build_s = builds.get(torch, f"amazon_spmm_{threshold}_{cu}")
             rec = amazon_spmm.run(ds_a, dc, device, iters=3,
                                   segment_iters=3, plain=True, seg_graph=g_a)
             rec.update(layout=amazon_spmm.layout_name(threshold, cu),
@@ -3851,9 +4055,11 @@ def _fullscale_spmm(torch, device, ds_a, g_a):
                                    f"off its plain walk or the segment path,"
                                    f" or not launched: {rec}")
             rows.append(rec)
+            if (threshold, cu) == (0, 1024):
+                v2 = dc
             del dc
             torch.cuda.empty_cache()
-    return rows
+    return rows, v2
 
 
 def _fullscale_uw(torch, device, ds_n, cache_dir):
@@ -3941,9 +4147,10 @@ def _fullscale_cluster(torch, cache_dir):
     return rec
 
 
-def phase_fullscale_scripts(torch, device, ds_a, ds_big, big_graph):
+def phase_fullscale_scripts(torch, device, ds_a, ds_big, big_graph, builds):
     """Phase 31 (see the module docstring); returns the launches by
-    kernel of the whole phase."""
+    kernel of the whole phase, the ``amazon_spmm`` rows and the host v2
+    layout at CU 1024."""
     import dataclasses
     import tempfile
 
@@ -3952,7 +4159,7 @@ def phase_fullscale_scripts(torch, device, ds_a, ds_big, big_graph):
     before = launch_counts()
     g_a = graph_from_edges(ds_a.senders, ds_a.receivers,
                            ds_a.n_nodes).to(device)
-    spmm_rows = _fullscale_spmm(torch, device, ds_a, g_a)
+    spmm_rows, v2 = _fullscale_spmm(torch, device, ds_a, g_a, builds)
     del g_a
 
     t0 = time.time()
@@ -3980,7 +4187,159 @@ def phase_fullscale_scripts(torch, device, ds_a, ds_big, big_graph):
           "k1_cu_rows": {r["layout"]: r["plain_rel_err"]
                          for r in spmm_rows}})
     torch.cuda.empty_cache()
-    return launches, spmm_rows
+    return launches, spmm_rows, v2
+
+
+# --- remaining_scripts: the projection, record_r2 and the cost models ------
+
+# Phase 32's cut of record_r2: its reddit-small full-graph SAGE fp32 run
+# at 3 of 60 epochs, and the ultra-wide point h64 K=2 at 2 epochs (one
+# round of 150 steps a subnet); each against the trainer called directly
+# with the same configuration and seeds (losses 1e-5 relative).  The
+# ultra-wide point's batches (~4,000 edges) are under TILES_MIN_EDGES,
+# whose segment path sums with atomics: on the H100 its record read
+# 8.1e-6 off the direct call's.  The phase lowers the threshold to 0 for
+# both, so K1, which sums in a fixed order, carries them.
+R2_SINGLE, R2_SINGLE_EPOCHS = "reddit_full_float32", 3
+R2_UW, R2_UW_EPOCHS, R2_UW_PSIZE = "ultrawide:64,2", 2, 1500
+R2_TOL = 1e-5
+
+
+def _r2_against_direct(torch, what, name, n_epochs, out_dir, cache_dir):
+    """``record_r2`` for the run ``name`` of ``what`` at ``n_epochs``, and
+    the same run's trainer called directly, both on the partitions cached
+    in ``cache_dir``: (record, direct result)."""
+    import dataclasses
+
+    from gist_tpu_torch.bench import record_r2
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.train.full_graph import train_full_graph
+    from gist_tpu_torch.train.ist_ultrawide import train_ist_ultrawide
+    rec = record_r2.record(what, "cuda", only=[name], n_epochs=n_epochs,
+                           out_dir=out_dir, cache_dir=cache_dir)[name]
+    t0 = time.time()
+    run = next(r for r in record_r2.runs(what) if r.name == name)
+    ds = dataclasses.replace(load_dataset(run.dataset))
+    if run.normalize:
+        ds.normalize_features()
+    model, cfg, tc = record_r2.configs(run, ds, n_epochs)
+    if run.trainer == "full_graph":
+        direct = train_full_graph(ds, cfg, tc, model=model, device="cuda",
+                                  verbose=False, **run.kw)
+    else:
+        direct = train_ist_ultrawide(ds, cfg, tc, model=model,
+                                     sequential=True, device="cuda",
+                                     verbose=False, cache_dir=cache_dir,
+                                     **run.kw)
+    direct["wall_time"] = time.time() - t0
+    return rec, direct
+
+
+def phase_remaining_scripts(torch, ds_a, v2_layout, ring, dev, builds):
+    """Phase 32 (see the module docstring); returns the launches by kernel
+    of the scripts' own runs.  ``builds`` (:class:`HostBuilds`) holds the
+    cost models' counts and the ultra-wide point's partitions."""
+    import tempfile
+
+    from gist_tpu_torch import sampler
+    from gist_tpu_torch.bench import (amazon_split_analysis,
+                                      amazon_tn_analysis,
+                                      scaling_projection)
+    from gist_tpu_torch.data import load_dataset
+    launches = dict.fromkeys(launch_counts(), 0)
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    t0 = time.time()
+    link = (f"gloo via host, {ring['ranks']} ranks on one {dev['name']} "
+            f"(phase 27's ring exchange of F=602 fp32 halo rows, beside "
+            f"phase 29's 4-rank world)")
+    proj = scaling_projection.run(
+        load_dataset("synth-reddit-small"), "cuda",
+        link_bytes_per_s=ring["bytes_per_s"], link_name=link,
+        devices=(2, 4), iters=5)
+    add(proj["kernel_launches"])
+    emit({"phase": "remaining_scripts", "script": "scaling_projection",
+          "seconds": time.time() - t0, "ring_rate": ring, **proj})
+    effs = [p[k] for p in proj["projections"] for k in (
+        "efficiency_overlap_fp32", "efficiency_serial_fp32",
+        "efficiency_overlap_bf16")]
+    if not (proj["kernel_launches"].get("K1")
+            and proj["t1_source"].startswith("K1 forward")
+            and proj["t1_agg_ms_fp32"] > 0 and proj["t1_agg_ms_bf16"] > 0
+            and all(0 < e <= 1.0 + 1e-9 for e in effs)):
+        raise RuntimeError(f"scaling_projection failed its checks: {proj}")
+
+    rows = {}
+    parts = builds.get(torch, "r2_partitions")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_r2_") as out_dir:
+        for what, name, epochs in (
+                ("singles", R2_SINGLE, R2_SINGLE_EPOCHS),
+                (R2_UW, "uw_h64_k2", R2_UW_EPOCHS)):
+            t0 = time.time()
+            min_edges = sampler.TILES_MIN_EDGES
+            if what == R2_UW:
+                sampler.TILES_MIN_EDGES = 0
+            try:
+                rec, direct = _r2_against_direct(torch, what, name, epochs,
+                                                 out_dir, parts["cache_dir"])
+            finally:
+                sampler.TILES_MIN_EDGES = min_edges
+            add(rec["kernel_launches"])
+            rel = _loss_rel(rec["losses"], direct["losses"])
+            rows[name] = row = {
+                "phase": "remaining_scripts", "script": "record_r2",
+                "run": name, "epochs": epochs, "seconds": time.time() - t0,
+                "wall_time": rec["wall_time"],
+                "direct_wall_time": direct["wall_time"],
+                "losses": rec["losses"],
+                "direct_losses": direct["losses"], "loss_rel": rel,
+                "tol": R2_TOL, "kernel_launches": rec["kernel_launches"],
+                "file": os.path.basename(os.path.join(
+                    out_dir, f"torch_r2_{name}.json")),
+                "written": os.path.exists(os.path.join(
+                    out_dir, f"torch_r2_{name}.json")),
+                **{k: rec[k] for k in ("best_val_acc", "best_val",
+                                       "mean_epoch_s", "train_time",
+                                       "hardware", "power_limit_w")
+                   if k in rec}}
+            emit(row)
+    for name, row in rows.items():
+        if not (row["written"] and row["loss_rel"]
+                and max(row["loss_rel"]) <= R2_TOL):
+            raise RuntimeError(f"record_r2 {name} off the trainer called "
+                               f"directly: {row}")
+    if not all(row["kernel_launches"].get("K1") for row in rows.values()):
+        raise RuntimeError("a record_r2 run did not launch K1")
+
+    # the counts (host numpy) came from the host builds; the rates are
+    # this card's, measured here, and the walls follow from both
+    t0 = time.time()
+    counts = builds.get(torch, "cost_counts")
+    rates = amazon_split_analysis.measure_rates(ds_a.n_nodes, v2_layout,
+                                                "cuda")
+    kw = {k: rates[k] for k in ("gather_rows_per_s", "stream_bytes_per_s",
+                                "permute_s")}
+    pairs, slots, split_rows = counts["split"]
+    e = len(ds_a.senders)
+    for row in split_rows:
+        row.update(amazon_split_analysis.split_wall(row, 64, e, **kw))
+    tn_rows = counts["tn"]
+    for row in tn_rows:
+        row.update(amazon_tn_analysis.tn_wall(
+            row, e, budget_gib=rates["budget_gib"], **kw))
+    emit({"phase": "remaining_scripts", "script": "cost_models",
+          "seconds": time.time() - t0, "counts_s": counts["seconds"],
+          "rates": rates, "split_pairs": pairs, "split_unique_slots": slots,
+          "split_rows": split_rows, "tn_rows": tn_rows})
+    walls = [r["t_total_ms"] for r in split_rows + tn_rows]
+    if not (all(rates[k] > 0 for k in amazon_split_analysis.SOURCE_KEYS)
+            and all(w > 0 for w in walls)
+            and slots == tn_rows[0]["slots"]):
+        raise RuntimeError(f"the cost models failed their checks: {rates}")
+    return launches
 
 
 def _stop_resource_tracker():
@@ -4033,6 +4392,10 @@ def main():
     emit({"phase": "device", **dev, "seconds": time.time() - t0})
 
     emit({"phase": "build", "seconds": phase_build()})
+    # the host builds of phases 10, 12 and 31 run beside the phases
+    # before them
+    builds = HostBuilds(os.path.join(HERE, "scratch_chip",
+                                     f"host_builds.{os.getpid()}"))
 
     t0 = time.time()
     bench_launches, k1_tiles = phase_bench(torch, device, dev)
@@ -4157,7 +4520,8 @@ def main():
 
     g_amazon = graph_from_edges(ds.senders, ds.receivers, ds.n_nodes)
     t0 = time.time()
-    split_rows, split_pair = phase_split_kernels(torch, device, g_amazon)
+    split_rows, split_pair = phase_split_kernels(torch, device, g_amazon,
+                                                 builds)
     emit({"phase": "split_kernels", "seconds": time.time() - t0})
 
     t0 = time.time()
@@ -4167,10 +4531,13 @@ def main():
     torch.cuda.empty_cache()
 
     t0 = time.time()
-    ds_big = load_dataset("synth-reddit", self_loop=True)
-    emit({"phase": "full_path", "dataset_s": time.time() - t0})
+    full = builds.get(torch, "full_graph")
+    ds_big = full["ds"]
+    build = {k: full[k] for k in ("dataset_s", "layout_build_s")}
+    build.update(waited_s=builds.waited["full_graph"],
+                 load_s=time.time() - t0)
     full_launches, big_graph, chunked_rows = phase_full_path(
-        torch, device, ds_big)
+        torch, device, ds_big, full.pop("graph"), build)
     emit({"phase": "full_path", "seconds": time.time() - t0})
 
     t0 = time.time()
@@ -4183,22 +4550,30 @@ def main():
     emit({"phase": "scan_epochs_chunked", "seconds": time.time() - t0})
 
     t0 = time.time()
-    fullscale_launches, fullscale_spmm = phase_fullscale_scripts(
-        torch, device, ds, ds_big, big_graph)
+    fullscale_launches, fullscale_spmm, v2_layout = phase_fullscale_scripts(
+        torch, device, ds, ds_big, big_graph, builds)
     emit({"phase": "fullscale_scripts", "seconds": time.time() - t0})
     del ds_big, big_graph
     torch.cuda.empty_cache()
 
     t0 = time.time()
-    multi, k1_interior = phase_multi_rank(torch, dev["power"])
+    multi, k1_interior, ring = phase_multi_rank(torch, dev["power"])
     emit({"phase": "multi_rank", "seconds": time.time() - t0})
     sharded_launches, mesh_launches = multi["sharded_graph"], \
         multi["ist_mesh"]
     ist_2d_launches = multi["ist_sharded_2d"]["K1"]
 
     t0 = time.time()
-    cli_launches = phase_uw_cli_chunked_eval(torch, device)
+    remaining_launches = phase_remaining_scripts(torch, ds, v2_layout, ring,
+                                                 dev, builds)
+    emit({"phase": "remaining_scripts", "seconds": time.time() - t0})
+    del v2_layout
+
+    t0 = time.time()
+    cli_launches = phase_uw_cli_chunked_eval(torch, device, builds)
     emit({"phase": "uw_cli_chunked_eval", "seconds": time.time() - t0})
+    builds.close()
+    emit({"phase": "host_builds", "waited_s": builds.waited})
 
     phase_processes()
 
@@ -4212,7 +4587,8 @@ def main():
         + cli_launches + pp_launches + lsgd_launches + ic_gcn_launches
         + uw_gcn_launches + scan_b_launches + scan_c_launches
         + sharded_launches["K1"] + mesh_launches["K1"] + ist_2d_launches
-        + bench_launches["K1"] + fullscale_launches["K1"],
+        + bench_launches["K1"] + fullscale_launches["K1"]
+        + remaining_launches["K1"],
         "launches_by_path": {"sage_ultrawide": launches,
                              "full_graph_gcn": full_launches,
                              "uw_resume": resume_launches,
@@ -4228,7 +4604,9 @@ def main():
                              "ist_mesh": mesh_launches["K1"],
                              "ist_sharded_2d": ist_2d_launches,
                              "bench": bench_launches["K1"],
-                             "fullscale_scripts": fullscale_launches["K1"]},
+                             "fullscale_scripts": fullscale_launches["K1"],
+                             "remaining_scripts":
+                                 remaining_launches["K1"]},
         "replay_rel_err": max([r["rel_err"] for r in scan_b_rows.values()]
                               + [scan_c_row["rel_err"]]),
         "max_abs_err": max([c["max_abs_err"] for c in [

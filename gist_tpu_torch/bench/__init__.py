@@ -15,7 +15,14 @@ the CPU:
   rate), :mod:`.ist_sharded_2d` (the 2-D mesh beside its 1-D control),
   :mod:`.amazon_uw_fullscale` (ultra-wide, resumable by key) and
   :mod:`.cluster_fullscale` (the Cluster-GCN baseline);
-* :mod:`.procs` — the one way to start a child process;
+* projections, records and cost models: :mod:`.scaling_projection` (the D-rank projection
+  of one aggregation, its link rate an input), :mod:`.record_r2` (the
+  round-2 records), :mod:`.amazon_split_analysis` and
+  :mod:`.amazon_tn_analysis` (the cost models of the TPU kernel's
+  gather wall, their rates measured or given), :mod:`.r4_figures` and
+  :mod:`.r5_figures` (the figures, off the card);
+* :mod:`.procs` — the one way to start a child process, and a time
+  limit on every world of spawned ranks;
 * :mod:`.timing` — the one timer; :mod:`.common` — rates, bounds,
   launch counts, the device stamp and the result files.
 """

@@ -11,10 +11,15 @@ call that started it.
 
 :func:`descendants` lists this process's live descendants by walking
 ``/proc/<pid>/task/*/children`` (read only).
+
+Ranks spawned by ``torch.multiprocessing`` get the same treatment: each
+calls :func:`own_group` first, and :func:`join_spawned` waits for them
+within a limit and ends every rank's group however the wait ends.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import signal
 import subprocess
@@ -100,14 +105,90 @@ def run_child(cmd, timeout=None, **kw) -> subprocess.CompletedProcess:
     return run_children([cmd], timeout, **kw)[0]
 
 
+def own_group() -> None:
+    """Make the calling rank the leader of a session (and so a process
+    group) of its own, which :func:`join_spawned` ends with everything
+    the rank started."""
+    os.setsid()
+
+
+def rank_timeout(timeout_s: float) -> datetime.timedelta:
+    """A rank's collective and rendezvous timeout inside a world limited
+    to ``timeout_s`` seconds: three quarters of it, so a rank stuck in a
+    collective raises on the rank before the world's limit ends it
+    (gloo's and NCCL's defaults are 30 and 10 minutes)."""
+    return datetime.timedelta(seconds=max(0.75 * timeout_s, 1.0))
+
+
+def _signal_rank(pid: int, sig) -> None:
+    """``sig`` to the group ``pid`` leads, or to ``pid`` alone where it
+    has not made its group yet."""
+    try:
+        if os.getpgid(pid) == pid:
+            os.killpg(pid, sig)
+        else:
+            os.kill(pid, sig)
+    except ProcessLookupError:
+        pass
+
+
+def end_ranks(processes, grace: float = GRACE_S) -> None:
+    """SIGTERM to every rank still running (its group), up to ``grace``
+    seconds for them to go, SIGKILL to those left, SIGKILL to every
+    rank's group (a straggler of a rank that has gone), every rank
+    reaped."""
+    live = [p for p in processes if p.is_alive()]
+    for p in live:
+        _signal_rank(p.pid, signal.SIGTERM)
+    deadline = time.monotonic() + grace
+    for p in live:
+        p.join(timeout=max(deadline - time.monotonic(), 0.0))
+    for p in live:
+        _signal_rank(p.pid, signal.SIGKILL)
+    for p in processes:
+        _signal_group(p.pid, signal.SIGKILL)
+        p.join()
+
+
+def join_spawned(ctx, timeout_s: float, what: str) -> None:
+    """Wait for the ranks of ``ctx`` (``torch.multiprocessing.
+    start_processes(..., join=False)``) for at most ``timeout_s``
+    seconds.  A rank that raises ends the wait at once
+    (``ProcessRaisedException``, as ``join=True`` would); past the limit
+    this raises ``TimeoutError`` naming ``what`` and the ranks still
+    running.  However the wait ends, every rank still running is then
+    ended with its group (:func:`end_ranks`)."""
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=min(max(deadline - time.monotonic(),
+                                           0.0), 1.0)):
+            if time.monotonic() >= deadline:
+                left = [r for r, p in enumerate(ctx.processes)
+                        if p.is_alive()]
+                raise TimeoutError(
+                    f"{what}: {len(ctx.processes)} ranks passed their "
+                    f"{timeout_s:.0f} s limit; ranks {left} were still "
+                    f"running and were ended")
+    finally:
+        end_ranks(ctx.processes)
+
+
 def _state(pid: int) -> str:
     with open(f"/proc/{pid}/stat", encoding="utf-8") as fh:
         return fh.read().rsplit(")", 1)[1].split()[0]
 
 
-def _cmdline(pid: int) -> str:
-    with open(f"/proc/{pid}/cmdline", "rb") as fh:
-        return fh.read().replace(b"\0", b" ").decode(errors="replace").strip()
+def _cmdline(pid: int, tries: int = 20) -> str:
+    """``pid``'s command line.  A process caught inside ``execve`` reads
+    an empty one for a moment (a child that ``subprocess.Popen`` has
+    just started, under load): read again for up to ~0.1 s."""
+    for _ in range(tries):
+        with open(f"/proc/{pid}/cmdline", "rb") as fh:
+            line = fh.read().replace(b"\0", b" ")
+        if line.strip():
+            break
+        time.sleep(0.005)
+    return line.decode(errors="replace").strip()
 
 
 def descendants(pid: int = None) -> list:

@@ -2,6 +2,7 @@
 (``benchmarks/sharded_step_bench.py``, ``benchmarks/sharded_gcn_bench.py``).
 
     python -m gist_tpu_torch.bench.sharded [--dataset synth-reddit-small]
+        [--link-bytes-per-s RATE --link-name NAME]
         [--device cuda|cpu] [--out results/torch_sharded.json]
 
 At D=1 there is no halo and every edge is interior, so what this
@@ -14,10 +15,11 @@ already holds a process group (``chip_smoke.py``) calls
   forward layout), the sharded ring aggregation with interior K1 tiles,
   and the ring on the segment path (``interior_tiles=False``), each
   sharded one with its error against the flat one relative to its max.
-  The JAX script's projection to D chips
-  (``projected_scaling_from_sharded_step``) is left out: its link rate,
-  ``ShardedGraph.projected_scaling``'s 4.5e10 B/s, is a TPU v5e ICI
-  link's, so no number it gave would be this card's.
+  Given a link rate (``--link-bytes-per-s``, and ``--link-name`` for
+  the record), the step record also carries the JAX script's projection
+  to D = 2, 4 and 8 ranks from the sharded D=1 kernel time
+  (``projected_scaling_from_sharded_step``, :func:`step_projection`);
+  without one the key is absent: the projection has no default link.
 * gcn (``sharded_gcn_bench.py``): GCN h128, 2 hidden layers, self
   loops, dropout 0: the flat forward (``models/gcn``, K1) against the
   sharded D=1 forward (whole-tensor LayerNorm over the ``graph`` dim).
@@ -83,6 +85,30 @@ def step_bench(ds, mesh, dev):
     return rec, sg_kernel
 
 
+def step_projection(ds, t1_ms: float, link_bytes_per_s: float,
+                    link_name: str) -> dict:
+    """``projected_scaling_from_sharded_step``: for D = 2, 4 and 8 the
+    graph sharded without interior layouts and projected from the
+    sharded D=1 time ``t1_ms`` at ``link_bytes_per_s``
+    (``ShardedGraph.projected_scaling``), with the overlap efficiency of
+    a bf16 halo beside it, as the JAX script writes it; plus the link's
+    rate and name."""
+    from gist_tpu_torch.parallel import build_sharded_graph
+    out = {"t1_ms": t1_ms, "link_bytes_per_s": float(link_bytes_per_s),
+           "link_name": link_name}
+    f = ds.in_feats
+    for d in (2, 4, 8):
+        sg = build_sharded_graph(ds.senders, ds.receivers, ds.n_nodes, d,
+                                 interior_tiles=False)
+        proj = sg.projected_scaling(t1_ms / 1e3, f,
+                                    link_bytes_per_s=link_bytes_per_s)
+        proj["efficiency_overlap_bf16_halo"] = sg.projected_scaling(
+            t1_ms / 1e3, f, halo_itemsize=2,
+            link_bytes_per_s=link_bytes_per_s)["efficiency_overlap"]
+        out[f"d{d}"] = proj
+    return out
+
+
 def gcn_bench(ds, mesh, dev) -> dict:
     from gist_tpu_torch.models import gcn
     from gist_tpu_torch.parallel import build_sharded_graph
@@ -129,9 +155,15 @@ def gcn_bench(ds, mesh, dev) -> dict:
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description="sharded paths at D=1")
     p.add_argument("--dataset", default="synth-reddit-small")
+    p.add_argument("--link-bytes-per-s", type=float, default=None,
+                   help="a link rate, bytes/s: adds the D-rank projection")
+    p.add_argument("--link-name", default=None,
+                   help="what link that rate is (needed with the rate)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--out", default=DEFAULT_OUT)
     args = p.parse_args(argv)
+    if (args.link_bytes_per_s is None) != (args.link_name is None):
+        p.error("--link-bytes-per-s and --link-name go together")
 
     import torch.distributed as dist
 
@@ -150,6 +182,10 @@ def main(argv=None) -> dict:
         stamp = common.hardware(dev)
         out = {"step": {**step_bench(ds, mesh, dev)[0], **stamp},
                "gcn": {**gcn_bench(ds, mesh, dev), **stamp}}
+        if args.link_bytes_per_s is not None:
+            out["step"]["projected_scaling_from_sharded_step"] = \
+                step_projection(ds, out["step"]["sharded_d1_kernel_ms"],
+                                args.link_bytes_per_s, args.link_name)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(work, ignore_errors=True)

@@ -28,6 +28,28 @@ from gist_tpu_torch.bench.timing import kernel_ms
 DEFAULT_OUT = common.results_path("spmm")
 
 
+def k1_fwd_ms(ds, device, dtypes=("float32", "bfloat16"),
+              iters: int = 10) -> dict:
+    """K1's forward (the ``pallas`` backend) on ``ds``'s flat layout at
+    each of ``dtypes``: ``{dtype: ms}``, device time per call
+    (:func:`timing.kernel_ms`, ``iters`` windows; on the CPU the wall
+    clock of the plain walk the wrapper runs there)."""
+    from gist_tpu_torch.graph import graph_from_edges
+    from gist_tpu_torch.ops.dedup_spmm import spmm_dedup
+    dev = torch.device(device)
+    g = graph_from_edges(ds.senders, ds.receivers, ds.n_nodes,
+                         tiles=True).to(dev)
+    if g.dedup is None:
+        raise RuntimeError(f"{ds.name}'s flat dedup layout did not build")
+    out = {}
+    with torch.no_grad():
+        for dtype in dtypes:
+            x = torch.from_numpy(ds.features).to(dev, getattr(torch, dtype))
+            out[dtype] = kernel_ms(lambda: spmm_dedup(g, x), windows=iters,
+                                   device=dev)
+    return out
+
+
 def main(argv=None) -> list:
     p = argparse.ArgumentParser(description="SpMM by backend")
     p.add_argument("--dataset", default="synth-reddit-small")

@@ -4,6 +4,7 @@ ranks and one graph-sharded training step of SAGE, GCN and GAT over a
 ``graph`` mesh, on synth-tiny.
 
     python -m gist_tpu_torch.dryrun 8 [--device cpu] [--backend gloo]
+        [--link-bytes-per-s RATE --link-name NAME [--t1-ms MS]]
 
 The ranks run on the card (rank r on ``cuda:r % device_count``, the
 kernels built here before any rank starts) unless ``--device cpu`` asks
@@ -12,6 +13,19 @@ on the CPU; NCCL refuses two ranks of one communicator on one card, so
 several ranks sharing one card need ``--backend gloo``.  It checks the
 plumbing only (finite losses, the same results on every rank); parity
 with the JAX package is the tests' job.
+
+The ranks run within ``DEFAULT_TIMEOUT_S`` seconds: past it every rank
+still running is ended with its process group and the run raises
+``TimeoutError`` (``bench/procs.py:join_spawned``), and each rank's
+process group times out at three quarters of it.
+
+Given a link rate (``--link-bytes-per-s`` and ``--link-name``), it also
+prints the D-rank scaling projection of the graph-sharded step's graph
+(``ShardedGraph.projected_scaling``, the JAX dry run's
+``_measured_agg_time`` projection), from the one-device time ``--t1-ms``
+or else the port's own sharded D=1 kernel time in
+``results/torch_sharded.json`` (:mod:`gist_tpu_torch.bench.sharded`);
+without either it raises.  It reads no record of another machine.
 """
 
 from __future__ import annotations
@@ -20,15 +34,18 @@ import os
 import tempfile
 from typing import Optional
 
+DEFAULT_TIMEOUT_S = 900.0
+
 
 def _rank(rank: int, n: int, rdv: str, out: str, device: str,
-          backend: str) -> None:
+          backend: str, timeout_s: float) -> None:
     import json
 
     import numpy as np
     import torch
     import torch.distributed as dist
 
+    from gist_tpu_torch.bench import procs
     from gist_tpu_torch.data import load_dataset
     from gist_tpu_torch.graph import graph_from_edges
     from gist_tpu_torch.ist.distributed import (build_ist_round,
@@ -39,12 +56,14 @@ def _rank(rank: int, n: int, rdv: str, out: str, device: str,
     from gist_tpu_torch.parallel.graph_shard import shard_features, shard_rows
     from gist_tpu_torch.parallel.train import build_sharded_step
 
+    procs.own_group()
     torch.set_num_threads(1)
     os.environ["LOCAL_RANK"] = str(rank)
     if backend == "nccl":
         comm.rank_device(device)
     dist.init_process_group(backend, init_method=f"file://{rdv}", rank=rank,
-                            world_size=n)
+                            world_size=n,
+                            timeout=procs.rank_timeout(timeout_s))
     try:
         ds = load_dataset("synth-tiny")
         hidden = 8 * n
@@ -123,26 +142,84 @@ def _build_kernels() -> None:
             dedup_spmm.build(mod.SOURCE)
 
 
+def sharded_t1_ms(path: Optional[str] = None):
+    """(ms, source) of the port's sharded D=1 kernel time in ``path``
+    (default ``results/torch_sharded.json``, written by
+    :mod:`gist_tpu_torch.bench.sharded`), its card and power limit in
+    the source; raises where there is none."""
+    import json
+
+    from gist_tpu_torch.bench.sharded import DEFAULT_OUT
+    path = path or DEFAULT_OUT
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"no one-device time for the projection: pass --t1-ms, or run "
+            f"python -m gist_tpu_torch.bench.sharded first ({path})")
+    with open(path, encoding="utf-8") as f:
+        step = json.load(f)["step"]
+    return (float(step["sharded_d1_kernel_ms"]),
+            f"{path} (sharded D=1, {step['hardware']}, "
+            f"{step['power_limit_w']} W)")
+
+
+def projection(n_devices: int, link_bytes_per_s: float, link_name: str,
+               t1_ms: Optional[float] = None,
+               t1_path: Optional[str] = None) -> dict:
+    """The dry run's projection: the graph-sharded step's graph
+    (synth-tiny over ``n_devices`` ranks) projected from ``t1_ms`` (else
+    :func:`sharded_t1_ms`) at ``link_bytes_per_s``, fp32 and with bf16
+    halos."""
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.parallel import build_sharded_graph
+    if t1_ms is None:
+        t1_ms, source = sharded_t1_ms(t1_path)
+    else:
+        source = "--t1-ms"
+    ds = load_dataset("synth-tiny")
+    sg = build_sharded_graph(ds.senders, ds.receivers, ds.n_nodes,
+                             n_devices, interior_tiles=False)
+    f = ds.in_feats
+    p32 = sg.projected_scaling(t1_ms / 1e3, f,
+                               link_bytes_per_s=link_bytes_per_s)
+    p16 = sg.projected_scaling(t1_ms / 1e3, f, halo_itemsize=2,
+                               link_bytes_per_s=link_bytes_per_s)
+    return {**p32, "efficiency_overlap_bf16_halo": p16["efficiency_overlap"],
+            "t1_ms": t1_ms, "t1_source": source,
+            "link_bytes_per_s": link_bytes_per_s, "link_name": link_name}
+
+
 def dryrun_multichip(n_devices: int, device: str = "cuda",
-                     backend: Optional[str] = None) -> dict:
+                     backend: Optional[str] = None,
+                     timeout_s: float = DEFAULT_TIMEOUT_S,
+                     link_bytes_per_s: Optional[float] = None,
+                     link_name: Optional[str] = None,
+                     t1_ms: Optional[float] = None) -> dict:
     """Spawn ``n_devices`` ranks on ``device`` (``backend`` defaults to
-    ``nccl`` on the card and ``gloo`` on the CPU), run the dry run,
-    print rank 0's summary and return it; raises if a loss is not
-    finite or the ranks disagree."""
+    ``nccl`` on the card and ``gloo`` on the CPU), run the dry run
+    within ``timeout_s`` seconds, print rank 0's summary and return it;
+    raises if a loss is not finite or the ranks disagree.  With
+    ``link_bytes_per_s`` (and ``link_name``) the summary also holds the
+    D-rank projection (:func:`projection`) under ``"projection"``."""
     import json
     import math
 
     import torch.multiprocessing as mp
 
+    from gist_tpu_torch.bench import procs
     from gist_tpu_torch.parallel.comm import default_backend
     from gist_tpu_torch.utils import resolve_device
+    if (link_bytes_per_s is None) != (link_name is None):
+        raise ValueError("a link rate goes with the link's name")
     if resolve_device(device).type == "cuda":
         _build_kernels()
     backend = backend or default_backend(device)
     with tempfile.TemporaryDirectory(prefix="dryrun_") as work:
-        mp.start_processes(_rank, args=(n_devices, f"{work}/rdv",
-                                        f"{work}/out", device, backend),
-                           nprocs=n_devices, start_method="spawn")
+        ctx = mp.start_processes(
+            _rank, args=(n_devices, f"{work}/rdv", f"{work}/out", device,
+                         backend, timeout_s),
+            nprocs=n_devices, join=False, start_method="spawn")
+        procs.join_spawned(ctx, timeout_s,
+                           f"the dry run of {n_devices} ranks")
         runs = []
         for r in range(n_devices):
             with open(f"{work}/out.{r}") as f:
@@ -166,6 +243,17 @@ def dryrun_multichip(n_devices: int, device: str = "cuda",
           f"{cs['ring_rows']} (waste {cs['ring_waste']:.2f}x), a2a "
           f"{cs['a2a_rows']} (waste {cs['a2a_waste']:.2f}x); ring shifts "
           f"kept {res['ring_shifts'][0]}/{res['ring_shifts'][1]}")
+    if link_bytes_per_s is not None:
+        p = res["projection"] = projection(n_devices, link_bytes_per_s,
+                                           link_name, t1_ms)
+        print(f"  projected scaling @D={n_devices}: edge balance "
+              f"{p['edge_balance']:.2f}x, wire "
+              f"{p['wire_bytes_per_device']} B/dev, efficiency "
+              f"{p['efficiency_overlap']:.1%} (overlap) / "
+              f"{p['efficiency_serial']:.1%} (serial) / "
+              f"{p['efficiency_overlap_bf16_halo']:.1%} (bf16 halos) "
+              f"[t1_agg={p['t1_ms']:.3f} ms from {p['t1_source']}; link "
+              f"{link_name} at {link_bytes_per_s:.4g} B/s]")
     return res
 
 
@@ -177,5 +265,16 @@ if __name__ == "__main__":
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     p.add_argument("--backend", choices=["nccl", "gloo"], default=None)
+    p.add_argument("--link-bytes-per-s", type=float, default=None,
+                   help="a link rate, bytes/s: adds the projection")
+    p.add_argument("--link-name", default=None,
+                   help="what link that rate is (needed with the rate)")
+    p.add_argument("--t1-ms", type=float, default=None,
+                   help="one-device aggregation ms (default: the sharded "
+                        "D=1 time in results/torch_sharded.json)")
     a = p.parse_args()
-    dryrun_multichip(a.n_devices, a.device, a.backend)
+    if (a.link_bytes_per_s is None) != (a.link_name is None):
+        p.error("--link-bytes-per-s and --link-name go together")
+    dryrun_multichip(a.n_devices, a.device, a.backend,
+                     link_bytes_per_s=a.link_bytes_per_s,
+                     link_name=a.link_name, t1_ms=a.t1_ms)

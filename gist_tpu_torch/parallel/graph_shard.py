@@ -107,17 +107,18 @@ class ShardedGraph:
         }
 
     def projected_scaling(self, t1_agg_s: float, f: int,
-                          itemsize: int = 4,
-                          ici_bytes_per_s: float = 4.5e10,
+                          itemsize: int = 4, *, link_bytes_per_s: float,
                           halo_itemsize: Optional[int] = None) -> dict:
         """The JAX package's projection of the D-device edges/s scaling
-        of one aggregation from a one-device time: the slowest rank's
-        step is ``max(t_interior, t_wire) + t_boundary`` (overlapped)
-        or ``t_compute + t_wire`` (serial), compute scaling with the
-        rank's edge share and the wire with the rows it sends per ring
-        shift.  The default link rate, 4.5e10 B/s, is a TPU v5e ICI
-        link's figure, kept so the formula equals JAX's; it is not a
-        rate of any link of the port's hardware."""
+        of one aggregation from a one-device time ``t1_agg_s``: the
+        slowest rank's step is ``max(t_interior, t_wire) + t_boundary``
+        (overlapped) or ``t_compute + t_wire`` (serial), compute scaling
+        with the rank's edge share and the wire with the rows it sends
+        per ring shift at ``link_bytes_per_s``.  Both rates are the
+        caller's: a one-device time measured on the card, and the rate
+        of the link the ranks would use, each named where it is
+        reported.  ``halo_itemsize`` (default ``itemsize``) is the
+        bytes of a halo element on the wire."""
         h_item = itemsize if halo_itemsize is None else halo_itemsize
         D = self.n_devices
         E = max(self.n_edges, 1)
@@ -131,7 +132,7 @@ class ShardedGraph:
         t_bnd = float(bnd_dev[worst]) * t_edge
         t_int = t_comp - t_bnd
         wire_rows = sum(self.ring_pads)
-        t_wire = wire_rows * f * h_item / ici_bytes_per_s
+        t_wire = wire_rows * f * h_item / link_bytes_per_s
         t_overlap = max(t_int, t_wire) + t_bnd
         t_serial = t_comp + t_wire
         ideal = t1_agg_s / D

@@ -117,7 +117,10 @@ def test_kernel_tune_script(tmp_path, capsys, monkeypatch):
 
 def test_sharded_script(tmp_path, capsys):
     """At D=1 the sharded aggregation equals the flat one within 1e-5
-    (kernel and segment rings), and so does the sharded GCN forward."""
+    (kernel and segment rings), and so does the sharded GCN forward.
+    Without a link rate the step record has no projection; with one it
+    has JAX's ``projected_scaling_from_sharded_step`` from its own D=1
+    time, equal to JAX's formula at that time and rate."""
     out = sharded.main(["--dataset", TINY, *CPU, "--out",
                         str(tmp_path / "sh.json")])
     step, gcn = out["step"], out["gcn"]
@@ -134,6 +137,32 @@ def test_sharded_script(tmp_path, capsys):
             "edges_per_sec_sharded_d1"} <= set(gcn)
     assert gcn["sharded_rel_err"] <= 1e-5
     assert _printed(capsys) == [step, gcn]
+
+    rate = 1.25e9                        # an input, not a card's figure
+    linked = sharded.main(["--dataset", TINY, *CPU, "--out",
+                           str(tmp_path / "sh2.json"), "--link-bytes-per-s",
+                           str(rate), "--link-name", "a test link"])["step"]
+    proj = linked["projected_scaling_from_sharded_step"]
+    t1 = linked["sharded_d1_kernel_ms"]
+    assert (proj["t1_ms"], proj["link_bytes_per_s"], proj["link_name"]) \
+        == (t1, rate, "a test link")
+    from gist_tpu.data import synthetic_dataset
+    from gist_tpu.parallel import build_sharded_graph as j_build
+    ds = synthetic_dataset(TINY)
+    for d in (2, 4, 8):
+        sg = j_build(ds.senders, ds.receivers, ds.n_nodes, d,
+                     interior_tiles=False)
+        want = sg.projected_scaling(t1_agg_s=t1 / 1e3, f=ds.in_feats,
+                                    ici_bytes_per_s=rate)
+        want["efficiency_overlap_bf16_halo"] = sg.projected_scaling(
+            t1_agg_s=t1 / 1e3, f=ds.in_feats, halo_itemsize=2,
+            ici_bytes_per_s=rate)["efficiency_overlap"]
+        got = proj[f"d{d}"]
+        assert got.keys() == want.keys()
+        for k in want:
+            assert got[k] == pytest.approx(want[k], rel=1e-12), (d, k)
+    with pytest.raises(SystemExit):
+        sharded.main(["--dataset", TINY, *CPU, "--link-bytes-per-s", "1e9"])
 
 
 def test_default_outputs_write_no_existing_result():

@@ -193,7 +193,7 @@ def runs():
                           sequential=False, **common)
     cases.append(("uw_mesh", dict(fn="ist_ultrawide", sequential=False)))
     cases.append(("uw_seq", dict(fn="ist_ultrawide", sequential=True)))
-    return jax_side, run_world(K, cases, payload)
+    return jax_side, run_world(K, cases, payload, timeout_s=120)
 
 
 @pytest.mark.parametrize("kind", ["gcn", "sage"])

@@ -395,7 +395,8 @@ def test_ist_sharded_2d_matches_jax():
     out = run_world(S2 * G2, [("run", dict(fn="ist_2d_script"))],
                     {"init": init, "bnds": bnds,
                      "cfg": dict(subnets=S2, graph=G2, rounds=ROUNDS2,
-                                 steps=STEPS2, hidden=H2)})["run"]
+                                 steps=STEPS2, hidden=H2)},
+                    timeout_s=120)["run"]
     p2, p1, losses, vals = _jax_2d(ds, init, bnds)
     rec = out[0]
     for want, got in ((p2, rec["params_2d"]), (p1, rec["params_1d"])):

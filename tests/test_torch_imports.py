@@ -1,5 +1,8 @@
 """The port and its chip scripts import neither JAX nor the JAX
-package: the machine with the card has no JAX."""
+package, its benchmark scripts or its driver entry: the machine with the
+card has no JAX.  Nor do they hold the JAX package's TPU figures as
+numbers: a link rate, an aggregation time or a gather rate is the
+caller's input or is measured on the card."""
 
 import ast
 import pathlib
@@ -7,7 +10,12 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gist_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gist_tpu",
+             "benchmarks", "__graft_entry__")
+# the JAX package's TPU figures: its v5e ICI link rate, its recorded
+# fp32 and bf16 aggregation times, its XLA gather rate, its pipeline
+# rate and its permute time
+TPU_FIGURES = (4.5e10, 9.9e-3, 7.2e-3, 85e6, 195e9, 0.042)
 SOURCES = sorted((ROOT / "gist_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_ab.py", ROOT / "chip_flagship.py",
     ROOT / "chip_fullscale.py",
@@ -39,3 +47,18 @@ def test_no_jax_imports(path):
 def test_scan_sees_the_package():
     assert len(SOURCES) > 15
     assert (ROOT / "chip_smoke.py").exists()
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_tpu_figures(path):
+    """No numeric literal of the JAX package's TPU figures, and no
+    mention of its 11 GiB budget."""
+    text = path.read_text()
+    tree = ast.parse(text, filename=str(path))
+    bad = [(node.lineno, node.value) for node in ast.walk(tree)
+           if isinstance(node, ast.Constant)
+           and type(node.value) in (int, float)
+           and any(node.value == v for v in TPU_FIGURES)]
+    assert not bad, f"{path.relative_to(ROOT)} holds {bad}"
+    assert "11 GiB" not in text and "HBM_BUDGET_GIB" not in text

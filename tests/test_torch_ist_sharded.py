@@ -83,7 +83,7 @@ def port():
         _, payload["init"][kind], payload["bnds2d"][kind] = _setup(kind)
     return run_world(S * GD, [(k, dict(fn="ist_sharded", kind=k,
                                        n_subnet=S)) for k in KINDS],
-                     payload)
+                     payload, timeout_s=120)
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -41,7 +41,8 @@ def test_init_multihost_without_environment(monkeypatch):
 
 def test_init_multihost_two_ranks_from_launcher_env():
     res = run_world(2, [("mh", dict(fn="multihost"))],
-                    {"port": _free_port()}, init=False)["mh"]
+                    {"port": _free_port()}, timeout_s=60,
+                    init=False)["mh"]
     for bare, ok, world, total, again in res:
         assert (bare, ok, world, total, again) == (False, True, 2, 3.0,
                                                    False)
@@ -65,7 +66,7 @@ def cli_runs(tmp_path_factory):
             "--model", "sage", "--ist-subnets", "2", "--n-epochs", "2",
             "--iter_per_site", "2"])),
     ]
-    return run_world(2, cases), out
+    return run_world(2, cases, timeout_s=120), out
 
 
 @pytest.mark.parametrize("case", ["sage", "gcn_bf16", "gat"])

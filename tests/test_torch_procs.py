@@ -95,3 +95,26 @@ def test_descendants_and_kill():
             p.kill()
             p.wait()
     assert os.getpid() not in dict(procs.descendants())
+
+
+def test_run_world_ends_a_world_past_its_limit(tmp_path):
+    """A gloo world whose rank 1 never returns (and has started a child
+    of its own) is ended at its limit: ``run_world`` raises
+    ``TimeoutError`` naming the case and rank 1, and neither a rank nor
+    the rank's child is left running."""
+    from torch_dist_workers import run_world
+    before = procs.descendants()
+    pid_file = tmp_path / "child.pid"
+    t0 = time.time()
+    with pytest.raises(TimeoutError, match=r"'stuck'.*ranks \[(0, )?1\]"):
+        run_world(2, [("stuck", dict(fn="hang"))],
+                  {"pid_file": str(pid_file)}, timeout_s=20, init=False)
+    assert time.time() - t0 < 20 + procs.GRACE_S + 10
+    # the spawn context's resource tracker lives as long as this process
+    assert [d for d in _new_descendants(before)
+            if "resource_tracker" not in d[1]] == []
+    child = int(pid_file.read_text())
+    try:
+        assert procs._state(child) == "Z"    # killed, not yet reaped
+    except FileNotFoundError:
+        pass                                 # killed and reaped

@@ -94,7 +94,7 @@ def port():
              for k, v in CASES.items()]
     cases.append(("gcn_dropout", dict(fn="sharded_train", kind="gcn",
                                       steps=6, dropout=0.5)))
-    return run_world(WORLD, cases, payload)
+    return run_world(WORLD, cases, payload, timeout_s=120)
 
 
 def _jax_sharded(kind, halo_dtype=None):

@@ -10,42 +10,69 @@ ranks as one pickled payload, and reads back what each rank returned.
 
 import os
 import pickle
+import shutil
 import tempfile
+import time
 
 import numpy as np
 import torch
 
+# The seconds a world may take unless its caller says otherwise.  Every
+# world of the port's tests took 5-11 s on an 8-core CPU host running
+# six test workers at once; each caller passes about ten times its own.
+DEFAULT_TIMEOUT_S = 180.0
 
-def run_world(world: int, cases, payload=None, timeout_s: float = 300.0,
-              init: bool = True):
+
+def run_world(world: int, cases, payload=None,
+              timeout_s: float = DEFAULT_TIMEOUT_S, init: bool = True):
     """Run every ``(name, args)`` of ``cases`` in order in one gloo world
     of ``world`` CPU ranks (rendezvous through a file; ``init=False``
-    leaves the process group to the cases); returns
-    ``{name: [rank 0's result, rank 1's, ...]}``."""
+    leaves the process group to the cases); returns ``{name: [rank 0's
+    result, rank 1's, ...]}``.
+
+    ``timeout_s`` limits the world: each rank's process group times out
+    at three quarters of it (``procs.rank_timeout``; also the default of
+    a group a case starts itself), and past it every rank still running
+    is ended with its whole process group and ``TimeoutError`` names
+    the cases and those ranks (``procs.join_spawned``).  A rank that
+    raises ends the world at once."""
     import torch.multiprocessing as mp
+
+    from gist_tpu_torch.bench import procs
+    cases = list(cases)
     work = tempfile.mkdtemp(prefix="torch_dist_")
     with open(os.path.join(work, "in.pkl"), "wb") as f:
-        pickle.dump((list(cases), payload), f)
-    ctx = mp.start_processes(_entry, args=(world, work, init),
-                             nprocs=world,
-                             join=False, start_method="spawn")
-    while not ctx.join(timeout=timeout_s):
-        pass
-    out = {}
-    for r in range(world):
-        with open(os.path.join(work, f"out{r}.pkl"), "rb") as f:
-            for name, res in pickle.load(f).items():
-                out.setdefault(name, []).append(res)
+        pickle.dump((cases, payload), f)
+    ctx = mp.start_processes(_entry, args=(world, work, init, timeout_s),
+                             nprocs=world, join=False,
+                             start_method="spawn")
+    try:
+        procs.join_spawned(ctx, timeout_s, f"the world running "
+                           f"{[name for name, _ in cases]}")
+        out = {}
+        for r in range(world):
+            with open(os.path.join(work, f"out{r}.pkl"), "rb") as f:
+                for name, res in pickle.load(f).items():
+                    out.setdefault(name, []).append(res)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
-def _entry(rank, world, work, init):
+def _entry(rank, world, work, init, timeout_s):
     import torch.distributed as dist
+    import torch.distributed.distributed_c10d as c10d
+
+    from gist_tpu_torch.bench import procs
+    procs.own_group()
     torch.set_num_threads(1)
     os.environ["LOCAL_RANK"] = str(rank)
+    timeout = procs.rank_timeout(timeout_s)
+    c10d.default_pg_timeout = timeout     # a group a case starts itself
     if init:
         dist.init_process_group("gloo", init_method=f"file://{work}/rdv",
-                                rank=rank, world_size=world)
+                                rank=rank, world_size=world,
+                                timeout=timeout)
     try:
         with open(os.path.join(work, "in.pkl"), "rb") as f:
             cases, payload = pickle.load(f)
@@ -58,6 +85,19 @@ def _entry(rank, world, work, init):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def hang(rank, world, payload):
+    """Rank 1 never returns: it starts a child of its own that sleeps,
+    writes the child's pid to ``payload["pid_file"]`` and sleeps; every
+    other rank returns its rank at once."""
+    if rank == 1:
+        import subprocess
+        child = subprocess.Popen(["sleep", "600"])
+        with open(payload["pid_file"], "w") as f:
+            f.write(str(child.pid))
+        time.sleep(600)
+    return rank
 
 
 def _np(t):
