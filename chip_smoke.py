@@ -72,8 +72,8 @@ raising on failure:
     a fresh directory resumed to 2 (3, 2 and 3 before, cut to keep the
     script's time); the resumed call returns the whole run, whose
     first round reads back as the cut run recorded it and whose losses
-    and val F1 must equal the uninterrupted run's within 1e-5 relative,
-    K1 9 launches a step trained in every run;
+    and val F1 must equal the uninterrupted run's bit for bit, K1 9
+    launches a step trained in every run;
 18. uw_cli_chunked_eval (run last): ``python -m
     gist_tpu_torch.cli.ist_distrib --ultra-wide`` as a function, SAGE
     h2048, 1 hidden layer (4, then 2 before, cut to keep the script's
@@ -92,8 +92,8 @@ raising on failure:
 20. ist_simulation: ``cli.train_ist`` as a function, GCN h256, 2
     layers, K=4 on synth-reddit-small (self loops, random projection),
     10 epochs, loop and ``--fused``: the loop's per-round mean losses
-    equal the fused rounds' within 1e-3 relative, and K1 launches 0
-    times (the full graph carries no layout);
+    equal the fused rounds' within 5e-7 relative, and K1 launches 0
+    times (the full graph carries no layout: S1 carries it);
 21. lsgd: ``cli.ist_distrib --lsgd`` as a function, SAGE h256, 2
     layers, K=4 on the GAT main path's clusters, 2 rounds, K1 5
     launches a step;
@@ -139,8 +139,9 @@ raising on failure:
     against its plain walk on rank 0's interior layout, and
     ``cli.sharded_train`` for SAGE h256, GCN h256 and GAT h512 (2 heads),
     2 layers, 3 epochs, against the same CLI on one rank (nccl, in this
-    process; 1e-5, GCN's later epochs 1e-4), with launches per rank, and
-    a GCN run with a bf16 halo as the control that reads over those bars;
+    process; 1e-5, GCN's first epoch exactly and its later ones 1e-4),
+    with launches per rank, the GCN run repeated bit for bit, and a GCN
+    run with a bf16 halo as the control that reads over those bars;
     on one rank also the sharded aggregation's time against the flat K1
     aggregation's; on each rank the bytes/s of a ring exchange of its
     F=602 halo rows (``bench/scaling_projection.py:ring_shift_rate``),
@@ -155,13 +156,14 @@ raising on failure:
     2 layers, 2 rounds of 8 steps) on a 2 x 2 mesh (4 ranks: the graph
     dim cut from 4 to 2) against S=2 x G=1 (2 ranks): K1 80 a rank, one
     step's gradients on the 2-D mesh's graph rows against one rank's
-    (1e-5), the round-mean losses of the run and of the same run repeated
-    within 4e-5 (round 1) and 1e-3 (round 2: Adam's steps amplify
-    last-bit differences, and the run differs from itself as much), and
-    a bf16-halo control that reads over round 1's bar.  Then, once,
+    (1e-5), the round-mean losses of the run within 4e-5 (round 1) and
+    1e-3 (round 2: Adam's steps amplify the last bits of another order of
+    summation), the same run repeated bit for bit, and a bf16-halo
+    control that reads over round 1's bar.  Then, once,
     ``gist_tpu_torch/bench/ist_sharded_2d.py:run`` on the same 2 x 2
     mesh: its 2-D run (K1 80 a rank) against its 1-D control within the
-    same bars, both curves printed.
+    same bars, both curves printed, the graph columns' 1-D controls
+    equal bit for bit.
 30. bench (run right after the build phase): every launch count set to
     0, ``python3 bench_torch.py`` in a subprocess from the checkout's
     root (one JSON line: every JAX bench key but those not carried over,
@@ -203,11 +205,28 @@ raising on failure:
     and 4, its t1 K1's forward measured here at fp32 and bf16, its link
     rate phase 27's measured ring rate (the slower rank's), named so;
     ``record_r2`` cut to its reddit-small full-graph SAGE fp32 run at 3
-    of 60 epochs (K1) and the ultra-wide point h64 K=2 at one round (K1
-    forced, ``R2_UW``), each against its trainer called directly (losses
-    1e-5 relative); both Amazon2M cost models on synth-amazon2m-small at
-    TN 64, on the order of phase 31's v2 layout, with their gather and
-    stream rates and permute time measured on the card in the phase.
+    of 60 epochs (K1; losses 1e-5 relative) and the ultra-wide point h64
+    K=2 at one round (``R2_UW``; its batches under the threshold, so S1;
+    losses bit for bit), each against its trainer called directly; both
+    Amazon2M cost models on synth-amazon2m-small at TN 64, on the order
+    of phase 31's v2 layout, with their gather and stream rates and
+    permute time measured on the card in the phase.
+33. segment_csr (run after phase 23): S1, the segment path's CSR row
+    walk, against its plain version (gather and ``index_add_``: fp32
+    1e-5, bf16 1e-2) and bitwise over two launches, with times beside its
+    bound and two PyTorch yardsticks (``torch.segment_reduce`` over the
+    gathered messages, ``index_add_`` under
+    ``use_deterministic_algorithms(True)``), on a flagship-shaped batch
+    (synth-amazon2m-small, psize 750, batch 10: F=256 forward and
+    transpose, fp32 and bf16, F=100, the GAT weighted sum and softmax
+    denominators) and on synth-reddit-small (F=602; F=256 forward and
+    transpose); the audit's repeats, each run twice from one seed and
+    held bit for bit in losses, accuracies and parameters: one round of
+    the flagship-shaped path (SAGE h2048, 4 hidden layers, K=8, at the
+    default threshold, so S1) and one GAT-GIST round (h512, 2 heads,
+    K=2, synth-reddit-small psize 40, batch 4); the D=2 sharded GCN
+    CLI's repeat is phase 27's; then a segment-path SAGE step captured
+    and replayed (``scan_batches``), S1 in every replay's trace.
 
 The layouts of phases 10, 12 and 31, and phase 32's cost-model counts
 and partitions, are built on the host by one child process started
@@ -283,8 +302,9 @@ def phase_build():
     waited for (``procs.run_children``) before the first failure
     raises."""
     from gist_tpu_torch.ops import (dedup_spmm, gat_dedup, gat_tiled,
-                                    split_spmm, tiled_spmm)
-    modules = [dedup_spmm, gat_dedup, split_spmm, tiled_spmm, gat_tiled]
+                                    segment_csr, split_spmm, tiled_spmm)
+    modules = [dedup_spmm, gat_dedup, split_spmm, tiled_spmm, gat_tiled,
+               segment_csr]
     os.makedirs(dedup_spmm.BUILD_DIR, exist_ok=True)
     t0 = time.time()
     libs = [dedup_spmm.library_path(mod.SOURCE) for mod in modules]
@@ -510,10 +530,21 @@ def phase_kernels(torch, device, sampler):
                      (256, torch.bfloat16)))
 
 
+def _reversed_edges(g):
+    """``g`` rebuilt (without layouts) from its edges in reverse order,
+    so that the segment path sums each row's edges the other way round:
+    the witness of summation-order noise."""
+    from gist_tpu_torch.graph import graph_from_edges
+    e = int(g.indptr[-1])
+    s, r = (a[:e].cpu().numpy()[::-1] for a in (g.senders, g.receivers))
+    return graph_from_edges(s, r, g.n_nodes, pad_to=g.n_edges_padded).to(
+        g.senders.device)
+
+
 def phase_reference(torch, device, sampler):
     """One flagship sub-model (width 256, four hidden layers, dropout 0)
-    on real batches, through K1 and through the segment path (gather +
-    index_add): the first step's parameter gradients and the losses of
+    on real batches, through K1 and through the segment path (S1): the
+    first step's parameter gradients and the losses of
     three Adam steps must agree.  Trained weights are not compared:
     Adam's g / (sqrt(v) + eps) turns summation-order noise in near-zero
     gradients into steps of size lr.
@@ -574,10 +605,7 @@ def phase_reference(torch, device, sampler):
         _, losses = burst(fresh(), batches, 1e-2, None, tables)
         out[backend] = (grads, losses.cpu(), K.launches)
     # the segment path against itself, its edges summed in reverse order
-    g0 = batches[0].graph
-    flipped = batches[0].replace(graph=g0.replace(**{
-        k: getattr(g0, k).flip(0).contiguous()
-        for k in ("senders", "receivers", "t_senders", "t_receivers")}))
+    flipped = batches[0].replace(graph=_reversed_edges(batches[0].graph))
     rev_err, rev_max = errors(first_grads(flipped), out["segment"][0])
     spmm.set_default_backend("auto")
     (kg, kl, kn), (sg, sl, sn) = out["dedup"], out["segment"]
@@ -672,8 +700,9 @@ def phase_uw_resume(torch, ds):
     and that directory resumed to 2 (3, 2 and 3 before).  The resumed
     call returns the whole run: its first round must read back as the
     cut run recorded it, and the whole must equal the uninterrupted run
-    within 1e-5 relative (K1 sums in a fixed order); every run launches
-    K1 9 times a step it trains."""
+    bit for bit (K1 and S1, which the evals on the full graph run, sum
+    in a fixed order); every run launches K1 9 times a step it
+    trains."""
     import dataclasses
     import tempfile
 
@@ -728,7 +757,7 @@ def phase_uw_resume(torch, ds):
            "resumed_losses": resumed["losses"], "val_f1": full["val_accs"],
            "resumed_val_f1": resumed["val_accs"],
            "loss_rel_diff": loss_diff, "val_f1_rel_diff": f1_diff,
-           "tol": 1e-5, "cut_round_read_back": read_back,
+           "tol": "bitwise", "cut_round_read_back": read_back,
            "k1_launches": launches,
            "k1_launches_by_run": [full["k1_launches"], cut["k1_launches"],
                                   resumed["k1_launches"]],
@@ -743,7 +772,8 @@ def phase_uw_resume(torch, ds):
     if not read_back:
         raise RuntimeError("the resumed run's record lost the cut run's "
                            "round")
-    if not (loss_diff <= 1e-5 and f1_diff <= 1e-5):
+    if not (resumed["losses"] == full["losses"]
+            and resumed["val_accs"] == full["val_accs"]):
         raise RuntimeError("the resumed run left the uninterrupted one")
     if not all(v == v and abs(v) < float("inf")
                for v in full["losses"] + full["val_accs"]):
@@ -960,49 +990,60 @@ def phase_cluster_pp(torch, ds):
     return pp_launches + mt_launches
 
 
+# Phase 20's bar, loop against fused (relative, per round): the two
+# modes order their matrix products differently, and both sum the
+# aggregations through S1 in edge order.  On the H100 they read 8.6e-8
+# (1e-3 before, when the segment path's atomics moved the last bits
+# between the runs).
+IST_SIM_TOL = 5e-7
+
+
 def phase_ist_simulation(torch):
     """The GIST simulation through its entry point, ``cli.train_ist``
     as a function: GCN h256, 2 layers, K=4 (the ``small-ist`` widths,
     split input and output) on synth-reddit-small with self loops and
     the random projection, ``iter_per_site`` 5, 10 epochs, dropout 0;
     once in loop mode, once ``--fused``.  The full graph carries no
-    layout, so K1 launches 0 times; the loop's losses averaged over each
-    round equal the fused run's round losses within 1e-3 relative (the
-    segment path's atomics move the last bits between the runs)."""
+    layout, so K1 launches 0 times and S1 carries every aggregation; the
+    loop's losses averaged over each round equal the fused run's round
+    losses within ``IST_SIM_TOL`` relative."""
     from gist_tpu_torch.cli import train_ist
     from gist_tpu_torch.ops import dedup_spmm as K
+    from gist_tpu_torch.ops import segment_csr as S
 
     argv = ["--dataset", "synth-reddit-small", "--n-hidden", "256",
             "--n-layers", "2", "--num_subnet", "4", "--iter_per_site", "5",
             "--n-epochs", "10", "--dropout", "0", "--split_output", "True"]
-    out, launches, walls = {}, 0, {}
+    out, launches, walls, s1 = {}, 0, {}, {}
     for mode, flags in (("loop", []), ("fused", ["--fused"])):
-        K.launches = 0
+        K.launches = S.launches = 0
         t0 = time.time()
         out[mode] = train_ist.main(argv + flags)
         torch.cuda.synchronize()
         walls[mode] = time.time() - t0
         launches += K.launches
+        s1[mode] = S.launches
     loop, fused = out["loop"], out["fused"]
     round_means = [sum(loop["losses"][i:i + 5]) / 5 for i in (0, 5)]
     diff = _rel_diff(round_means, fused["losses"])
     emit({"phase": "ist_simulation", "loop_losses": loop["losses"],
           "loop_round_means": round_means, "fused_losses": fused["losses"],
-          "loss_rel_diff": diff, "tol": 1e-3,
+          "loss_rel_diff": diff, "tol": IST_SIM_TOL,
           "loop_val_acc": loop["val_accs"], "fused_val_acc": fused["val_accs"],
           "loop_mean_epoch_s": loop["mean_epoch_s"],
           "fused_mean_epoch_s": fused["mean_epoch_s"],
           "loop_kteps": loop["kteps"], "fused_kteps": fused["kteps"],
-          "wall_s": walls, "k1_launches": launches})
-    if launches != 0:
+          "wall_s": walls, "k1_launches": launches, "s1_launches": s1})
+    if launches != 0 or not all(s1.values()):
         raise RuntimeError(f"K1 launched {launches} times on a graph "
-                           f"without a layout")
+                           f"without a layout, S1 {s1}")
     if len(loop["losses"]) != 10 or len(fused["losses"]) != 2:
         raise RuntimeError("expected 10 epochs and 2 fused rounds")
     if not _finite(loop["losses"] + fused["losses"] + loop["val_accs"]):
         raise RuntimeError("non-finite loss or accuracy")
-    if not diff <= 1e-3:
+    if not diff <= IST_SIM_TOL:
         raise RuntimeError(f"loop and fused rounds differ by {diff}")
+    return sum(s1.values())
 
 
 def phase_lsgd(torch, device, sampler):
@@ -2319,20 +2360,27 @@ def phase_v1_kernels(torch, device, ds):
         plain_reps=3)
 
 
+# Phase 15's gradient bars, K7-K9 or K3 against the segment path (S1):
+# GAT (max-relative on all leaves but the last attn, the last attn
+# norm-wise) and GCN (norm-wise per leaf).  On the H100 they read 4.1e-6
+# and 1.25e-4 (GAT) and 1.4e-7 (GCN); before S1 the bars were 1e-4, 5e-4
+# and 1e-3, over the atomics' run-to-run spread.
+V1_REF_BARS = {"gat": (4e-5, 5e-4), "gcn": 1e-6}
+
+
 def phase_v1_reference(torch, device, ds, graph):
     """Two Adam steps (lr 1e-2, weight decay 5e-4) from one seeded
     initialisation on the full synth-reddit-small v1 graph, through the
     kernels and through the segment path (GAT h512, 2 heads, 2 layers,
     through K7-K9; GCN h256, 1 hidden layer, dropout 0, through K3):
-    losses to 1e-4 relative.  GAT's first-step gradients are held to
-    1e-4 max-relative per leaf, except the last layer's ``attn``: a
-    last-bit change (the segment path sums with atomics) puts a score
-    on the leaky ReLU's kink now and then, which moves that leaf by
-    ~1.25e-4 norm-wise run to run in the fp32 segment path itself (see
-    PERF.md), so it is held norm-wise at 5e-4.  GCN's gradients are held
-    to 1e-3 norm-wise per leaf, as its ReLU flips the same way.  Both
-    fp32 paths' errors against the segment path run in float64 are
-    printed beside."""
+    losses to 1e-4 relative.  Both paths sum in fixed orders, which
+    differ, so the gradients are held to bars over the difference that
+    order makes (``V1_REF_BARS``): GAT's first-step gradients max-relative
+    per leaf, except the last layer's ``attn``, where a last-bit
+    difference puts a score on the leaky ReLU's kink (it reads ~1.25e-4
+    norm-wise, see PERF.md), held norm-wise; GCN's norm-wise per leaf.
+    Both fp32 paths' errors against the segment path run in float64
+    (S1's fp64 instance) are printed beside."""
     from gist_tpu_torch.models import gat, gcn
     from gist_tpu_torch.models.common import masked_cross_entropy
     from gist_tpu_torch.ops import gat_tiled as GT
@@ -2411,13 +2459,16 @@ def phase_v1_reference(torch, device, ds, graph):
                                f"on the kernel run): {row}")
         loss_ok = all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(kl, sl))
         if name == "gat":
-            row["grad_bars"] = ("max-relative 1e-4 on all leaves but the "
-                                "last attn; last attn norm-wise 5e-4 "
-                                "(leaky-ReLU kink flips)")
-            grad_ok = max(max_err[:-1]) <= 1e-4 and norm_err[-1] <= 5e-4
+            bars = V1_REF_BARS["gat"]
+            row["grad_bars"] = (f"max-relative {bars[0]} on all leaves but "
+                                f"the last attn; last attn norm-wise "
+                                f"{bars[1]} (leaky-ReLU kink flips)")
+            grad_ok = max(max_err[:-1]) <= bars[0] \
+                and norm_err[-1] <= bars[1]
         else:
-            row["grad_bars"] = "norm-wise 1e-3 per leaf (ReLU flips)"
-            grad_ok = max(norm_err) <= 1e-3
+            bar = V1_REF_BARS["gcn"]
+            row["grad_bars"] = f"norm-wise {bar} per leaf"
+            grad_ok = max(norm_err) <= bar
         emit(row)
         if not (loss_ok and grad_ok):
             raise RuntimeError(f"{name} through the v1 kernels disagrees "
@@ -2615,6 +2666,332 @@ def _replay_check(torch, launch, plain, tol=1e-5):
         raise RuntimeError(f"a replayed output is {err} off its plain "
                            f"version (tol {tol})")
     return err, prof
+
+
+# --- segment_csr: S1, the segment path's CSR row walk, and its repeats ------
+
+# The flagship-shaped batches of the phase: synth-amazon2m-small cut into
+# 750 clusters, 10 a batch (~1,300 nodes and 22,000-30,000 edges a batch,
+# as the full flagship's psize 15000 on synth-amazon2m gives ~1,630
+# nodes and a median of 20,332 edges), all under TILES_MIN_EDGES at the
+# default threshold, so they take the segment path.  Its audit round:
+# SAGE h2048, 4 hidden layers, K=8, 40 steps a subnet (one round of the
+# 75 batches).  The GAT-GIST audit: GAT h512, 2 heads, 2 layers, K=2 on
+# synth-reddit-small in 40 clusters, 4 a batch (~53,000 edges), one
+# round of 10 steps a subnet.
+SEG_PSIZE, SEG_BATCH, SEG_ITERS = 750, 10, 40
+SEG_GAT_PSIZE, SEG_GAT_BATCH, SEG_GAT_ITERS = 40, 4, 10
+
+
+def _s1_bound(indptr, x, idx, w, out):
+    """S1's least time on these inputs, as ``bench/common.py:k1_bound``
+    counts it: indptr, idx, w and the gathered rows' array read once,
+    the output written once (real edges only), against one add a real
+    edge and column (and one multiply where weighted)."""
+    e = int(indptr[-1]) - int(indptr[0])
+    f = out[0].numel()
+    nbytes = (indptr.numel() * 4 + (e * 4 if idx is not None else 0)
+              + (e * w[0].numel() * 4 if w is not None else 0)
+              + x.numel() * x.element_size()
+              + out.numel() * out.element_size())
+    flops = e * f * (2 if w is not None else 1)
+    return bound(nbytes, flops, x.dtype) + (nbytes, flops)
+
+
+def _s1_row(torch, phase, case, indptr, x, idx=None, w=None,
+            library=True):
+    """S1 against its plain version (gather and ``index_add_``: fp32
+    1e-5, bf16 1e-2 relative to the plain result's max) and against
+    itself (two launches bitwise equal), with its times beside its bound
+    and, where ``library``, two PyTorch calls of the same sum timed as
+    yardsticks: ``torch.segment_reduce`` over the gathered messages (the
+    gather not timed) and ``index_add_`` under
+    ``torch.use_deterministic_algorithms(True)``."""
+    from gist_tpu_torch.ops import segment_csr as S
+
+    def kernel():
+        return S.segment_csr(indptr, x, idx, w)
+
+    def plain():
+        return S.segment_csr_reference(indptr, x, idx, w)
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise RuntimeError(f"S1 output is not finite ({case})")
+    abs_err = float((got.float() - want.float()).abs().max())
+    rel_err = abs_err / max(float(want.float().abs().max()), 1e-30)
+    tol = 1e-5 if x.dtype == torch.float32 else 1e-2
+    bound_ms, bound_by, nbytes, flops = _s1_bound(indptr, x, idx, w, got)
+    row = {"phase": phase, "case": case, "rows": got.shape[0],
+           "edges": int(indptr[-1]), "max_abs_err": abs_err,
+           "rel_err": rel_err, "tol": tol,
+           "bitwise_repeat": bool(torch.equal(got, again)),
+           "ms": kernel_ms(kernel), "call_ms": call_ms(kernel, reps=20),
+           "plain_ms": call_ms(plain, reps=3), "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_bytes": nbytes, "useful_flops": flops,
+           "library_ms": None, "library_det_ms": None}
+    if library:
+        e = int(indptr[-1])
+        msgs = x[:e] if idx is None else x.index_select(0, idx[:e].long())
+        offsets = indptr.long()
+        row["library_ms"] = kernel_ms(lambda: torch.segment_reduce(
+            msgs, "sum", offsets=offsets, axis=0))
+        rows = torch.repeat_interleave(
+            torch.arange(got.shape[0], device=x.device),
+            (indptr[1:] - indptr[:-1]).long(), output_size=e)
+        src = idx[:e].long() if idx is not None else None
+
+        def det():
+            m = msgs if src is None else x.index_select(0, src)
+            return torch.zeros_like(got).index_add_(0, rows, m)
+        torch.use_deterministic_algorithms(True)
+        try:
+            row["library_det_ms"] = kernel_ms(det)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        row["library"] = ("torch.segment_reduce(sum) over the gathered "
+                          "messages; gather and index_add_ under "
+                          "use_deterministic_algorithms(True)")
+        del msgs, rows
+    emit(row)
+    if not (rel_err <= tol and row["bitwise_repeat"]):
+        raise RuntimeError(f"S1 disagrees with its plain version or with "
+                           f"itself: {row}")
+    return row
+
+
+def _s1_kernel_rows(torch, device, ds, ds_r):
+    """S1's rows at the phase's three shapes: a flagship-shaped batch at
+    sub-width 256 (forward and transpose, fp32 and bf16) and at F=100,
+    with the GAT weighted sum and the softmax denominators on it; the
+    headline synth-reddit-small graph at F=602; the same graph forward
+    and transpose at F=256."""
+    import numpy as np
+
+    from gist_tpu_torch.graph import graph_from_edges
+    from gist_tpu_torch.sampler import ClusterSampler
+
+    sampler = ClusterSampler(ds, SEG_PSIZE, SEG_BATCH, seed=0, tiles=False)
+    batch = sampler.make_batch(next(sampler.iter_node_ids()))
+    g = batch.graph.to(device)
+    emit({"phase": "segment_csr", "batch_nodes": batch.n_real_nodes,
+          "batch_edges": batch.n_real_edges, "n_pad": g.n_nodes,
+          "e_pad": g.n_edges_padded})
+    rng = np.random.default_rng(0)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dtype).to(device)
+    rows = {}
+
+    def add(key, *args, **kw):
+        rows[key] = _s1_row(torch, "segment_csr", key, *args, **kw)
+    for f, dtype in ((256, torch.float32), (100, torch.float32),
+                     (256, torch.bfloat16)):
+        x = rand(g.n_nodes, f, dtype=dtype)
+        tag = str(dtype).split(".")[-1]
+        add(f"batch fwd F={f} {tag}", g.indptr, x, g.senders)
+        if f == 256:
+            add(f"batch bwd F={f} {tag}", g.t_indptr, x, g.t_senders)
+    e = g.n_edges_padded
+    alpha = torch.from_numpy(rng.random((e, 2)).astype(np.float32)).to(
+        device)
+    add("batch weighted H=2 D=256 float32", g.indptr,
+        rand(g.n_nodes, 2, 256), g.senders, alpha, library=False)
+    add("batch denominators H=2 float32", g.indptr, rand(e, 2))
+    del sampler, batch, g
+    gr = graph_from_edges(ds_r.senders, ds_r.receivers,
+                          ds_r.n_nodes).to(device)
+    add("reddit fwd F=602 float32", gr.indptr,
+        torch.from_numpy(ds_r.features).to(device), gr.senders)
+    x = rand(gr.n_nodes, 256)
+    add("reddit fwd F=256 float32", gr.indptr, x, gr.senders)
+    add("reddit bwd F=256 float32", gr.t_indptr, x, gr.t_senders)
+    del gr, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _params_differ(torch, a, b):
+    """The names of the parameter leaves of two checkpoints' ``params``
+    whose bits differ."""
+    return [f"layers.{i}.{k}" for i, (la, lb) in enumerate(
+        zip(a["layers"], b["layers"])) for k in la
+        if la[k].shape != lb[k].shape or not torch.equal(la[k], lb[k])]
+
+
+def _audit_runs(torch, name, run):
+    """``run(checkpoint_dir, cache_dir)`` twice from the same seed (the
+    partitions cached by the first): the losses, accuracies and last
+    checkpoint's parameters of the two runs must be bit for bit equal,
+    and neither may launch K1.  Returns the row (the launches of each
+    run)."""
+    import tempfile
+
+    from gist_tpu_torch.train.checkpoint import (latest_round_dir,
+                                                 load_checkpoint)
+    res = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_audit_") as tmp:
+        for i in range(2):
+            ck = os.path.join(tmp, str(i))
+            reset_launch_counts()
+            t0 = time.time()
+            r = run(ck, os.path.join(tmp, "partitions"))
+            torch.cuda.synchronize()
+            res.append((r, launch_counts(), time.time() - t0,
+                        load_checkpoint(latest_round_dir(ck))["params"]))
+    (a, la, ta, pa), (b, lb, tb, pb) = res
+    differ = _params_differ(torch, pa, pb)
+    row = {"phase": "segment_csr", "audit": name, "losses": a["losses"],
+           "repeat_losses": b["losses"], "val": a["val_accs"],
+           "repeat_val": b["val_accs"],
+           "losses_equal": a["losses"] == b["losses"],
+           "val_equal": a["val_accs"] == b["val_accs"],
+           "params_differ": differ, "launches": la,
+           "repeat_launches": lb, "seconds": [ta, tb],
+           "edges_per_batch_max": max(a.get("edges_per_batch") or [0])}
+    emit(row)
+    if not (row["losses_equal"] and row["val_equal"] and not differ):
+        raise RuntimeError(f"audit {name}: two runs from one seed differ: "
+                           f"{row}")
+    if not la["S1"] or la != lb or la["K1"]:
+        raise RuntimeError(f"audit {name}: launches {la} and {lb}")
+    if not row["edges_per_batch_max"] < 200_000:
+        raise RuntimeError(f"audit {name}: a batch over TILES_MIN_EDGES")
+    return row
+
+
+def _audit_sage_round(torch, ds):
+    """One round of the flagship-shaped path on the segment path."""
+    import dataclasses
+
+    from gist_tpu_torch.models.sage import SAGEConfig
+    from gist_tpu_torch.train.common import TrainConfig
+    from gist_tpu_torch.train.ist_ultrawide import train_ist_ultrawide
+
+    cfg = SAGEConfig(100, 2048, 47, n_layers=4, dropout=0.2)
+    tc = TrainConfig(lr=1e-2, weight_decay=0.0, n_epochs=8, num_subnet=8,
+                     iter_per_site=SEG_ITERS)
+
+    def run(ck, cache_dir):
+        return train_ist_ultrawide(
+            dataclasses.replace(ds), cfg, tc, psize=SEG_PSIZE,
+            batch_size=SEG_BATCH, normalize=True, use_f1=True,
+            cache_dir=cache_dir, eval_on_cpu=False, checkpoint_dir=ck,
+            verbose=False, device="cuda")
+    return _audit_runs(torch, "sage_h2048_k8_round", run)
+
+
+def _audit_gat_step(torch, ds_r):
+    """One round of GAT-GIST on batches under the threshold."""
+    import dataclasses
+
+    from gist_tpu_torch.models import gat
+    from gist_tpu_torch.train.common import TrainConfig
+    from gist_tpu_torch.train.ist_cluster import train_ist_cluster
+
+    cfg = gat.GATConfig(602, 512, 41, n_layers=2, n_heads=2)
+    tc = TrainConfig(lr=1e-2, weight_decay=5e-4, n_epochs=2, num_subnet=2,
+                     iter_per_site=SEG_GAT_ITERS)
+
+    def run(ck, cache_dir):
+        return train_ist_cluster(
+            dataclasses.replace(ds_r), cfg, tc, psize=SEG_GAT_PSIZE,
+            batch_size=SEG_GAT_BATCH, normalize=True, model=gat, kind="gat",
+            cache_dir=cache_dir, checkpoint_dir=ck, verbose=False,
+            device="cuda")
+    row = _audit_runs(torch, "gat_h512_k2_round", run)
+    if any(row["launches"][k] for k in ("K4", "K5", "K6")):
+        raise RuntimeError(f"GAT audit took K4-K6: {row['launches']}")
+    return row
+
+
+def _segment_replay(torch, ds_r):
+    """A segment-path step captured and replayed: ``train_cluster_gcn``
+    with SAGE h256, 2 layers, dropout 0 on synth-reddit-small's
+    under-threshold batches (psize 40, batch 4), 2 epochs, the loop
+    against ``scan_batches=True`` (losses 1e-5 relative); every replay's
+    trace must show S1, and K1 none.  Then S1 alone captured and
+    replayed against its plain version (1e-5)."""
+    import dataclasses
+
+    import numpy as np
+
+    from gist_tpu_torch.graph import graph_from_edges
+    from gist_tpu_torch.models.sage import SAGEConfig
+    from gist_tpu_torch.ops import segment_csr as S
+    from gist_tpu_torch.train import capture
+    from gist_tpu_torch.train.cluster import train_cluster_gcn
+    from gist_tpu_torch.train.common import TrainConfig
+
+    cfg = SAGEConfig(602, 256, 41, n_layers=2, dropout=0.0)
+    tc = TrainConfig(lr=1e-2, weight_decay=0.0, n_epochs=2)
+
+    def run(scan):
+        return train_cluster_gcn(
+            dataclasses.replace(ds_r), cfg, tc, psize=SEG_GAT_PSIZE,
+            batch_size=SEG_GAT_BATCH, normalize=True, scan_batches=scan,
+            verbose=False, device="cuda")
+    reset_launch_counts()
+    loop = run(False)
+    torch.cuda.synchronize()
+    loop_launches = launch_counts()
+    capture.reset_stats()
+    reset_launch_counts()
+    with _replay_traces(torch) as traces:
+        scan = run(True)
+    torch.cuda.synchronize()
+    at_capture = launch_counts()
+    per_replay = [_count(p, "segment_csr_kernel") for p in traces]
+    k1_per_replay = [_count(p, "dedup_spmm_kernel") for p in traces]
+    rel = _rel_diff(scan["losses"], loop["losses"])
+    g = graph_from_edges(ds_r.senders, ds_r.receivers,
+                         ds_r.n_nodes).to("cuda")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (g.n_nodes, 256)).astype(np.float32)).cuda()
+    err, prof = _replay_check(
+        torch, lambda: (S.segment_csr(g.indptr, x, g.senders),),
+        lambda got: (S.segment_csr_reference(g.indptr, x, g.senders),))
+    row = {"phase": "segment_csr", "replay": "scan_batches_segment",
+           "loop_losses": loop["losses"], "scan_losses": scan["losses"],
+           "loss_max_rel_diff": rel, "replays": len(traces),
+           "s1_per_replay_profiler": per_replay,
+           "k1_per_replay_profiler": k1_per_replay,
+           "loop_launches": loop_launches,
+           "launches_at_capture": at_capture,
+           "s1_alone_replay_rel_err": err,
+           "s1_alone_in_trace": _count(prof, "segment_csr_kernel"),
+           "note": REPLAY_COUNT_NOTE}
+    emit(row)
+    if not (len(per_replay) == tc.n_epochs and min(per_replay) > 0
+            and max(k1_per_replay) == 0):
+        raise RuntimeError(f"a replay of a segment-path step did not show "
+                           f"S1: {row}")
+    if not (loop_launches["S1"] and at_capture["S1"]
+            and not loop_launches["K1"]):
+        raise RuntimeError(f"segment-path steps: launches {row}")
+    if not rel <= 1e-5:
+        raise RuntimeError(f"scanned segment-path losses {rel} off the "
+                           f"loop's")
+    return loop_launches["S1"] + sum(per_replay)
+
+
+def phase_segment_csr(torch, device, ds, ds_r):
+    """S1 at the three shapes, the audit's repeats (the flagship-shaped
+    round and the GAT-GIST round, each run twice from one seed, bit for
+    bit; the sharded GCN CLI's repeat is in phase 27) and a captured
+    segment-path step.  Returns (S1's rows, its launches by path)."""
+    rows = _s1_kernel_rows(torch, device, ds, ds_r)
+    sage_row = _audit_sage_round(torch, ds)
+    gat_row = _audit_gat_step(torch, ds_r)
+    replay_launches = _segment_replay(torch, ds_r)
+    launches = {
+        "sage_ultrawide_segment": sage_row["launches"]["S1"]
+        + sage_row["repeat_launches"]["S1"],
+        "gat_gist_segment": gat_row["launches"]["S1"]
+        + gat_row["repeat_launches"]["S1"],
+        "scan_batches_segment": replay_launches}
+    return rows, launches
 
 
 # Phase 23's depth: 2 epochs (3 before), the second one steady.
@@ -3079,26 +3456,30 @@ SHARDED_CLI = {
 }
 SHARDED_EPOCHS = 3
 # Each epoch's bar on the D=2 CLI losses against D=1's (relative).  On
-# the H100 SAGE and GAT read at most 1.3e-7.  GCN's second and third
-# epochs read 0 and 1.4e-6 in some runs of the same code and 2.3e-5 and
-# 3.7e-5 in others (the boundary sums' atomics, whose last bits Adam's
-# first steps, lr times the sign of each gradient entry, turn into loss
-# differences); a GCN run with a bf16 halo reads 1.2e-5, 4.7e-4 and
-# 1.8e-4, and the phase checks that this control reads over the bars.
-SHARDED_CLI_BARS = {"sage": [1e-5] * 3, "gcn": [1e-5, 1e-4, 1e-4],
+# the H100 SAGE and GAT read at most 1.3e-7.  GCN reads 0, 2.3e-5 and
+# 4.0e-5 in every run: D=2 sums its boundary edges apart (S1) from its
+# interior ones (K1), an order that differs from D=1's but is fixed, and
+# Adam's first steps (lr times the sign of each gradient entry) turn its
+# last bits into loss differences.  So GCN's first epoch is held
+# exactly and the later ones within 1e-4 (1e-5, 1e-4, 1e-4 before, over
+# the boundary sums' atomics); a GCN run with a bf16 halo reads 1.2e-5,
+# 4.7e-4 and 1.8e-4, and the phase checks that this control reads over
+# the bars.
+SHARDED_CLI_BARS = {"sage": [1e-5] * 3, "gcn": [0.0, 1e-4, 1e-4],
                     "gat": [1e-5] * 3}
 # Phase 29's bar on each round's mean loss, G=2 against G=1 (relative).
 # A round is 8 Adam steps, whose first steps (lr times the sign of each
 # gradient entry) turn last-bit differences of the summation order into
-# loss differences.  On the H100 round 1 reads 1.3-1.5e-5 at fp32 and
-# 8.1e-5 with a bf16 halo: its bar sits between, and the phase checks
-# the bf16 control stays over it.  Round 2 of the G=2 run differs from
-# the same run repeated by 3.1e-4, as much as from G=1 (1.7e-4 to
-# 4.8e-4); a bf16 halo reads 1.0e-3 there, so round 2 cannot tell the
-# two apart and its bar only sits over that spread.  The 2-D script's
-# run is held against its 1-D control at the same bars: at its own
-# configuration (weight decay 0, init and boundaries seeded 0 and 11)
-# the H100 read 1.0e-6 and 2.1e-5.
+# loss differences: G=2 sums its boundary edges apart from its interior
+# ones.  On the H100 round 1 reads 1.5e-5 at fp32 and 7.8e-5 with a bf16
+# halo: its bar sits between, and the phase checks the bf16 control
+# stays over it.  Round 2 reads 4.7e-4 (a bf16 halo 6.1e-4), so its bar
+# only sits over that difference.  The same G=2 run repeated is held
+# bit for bit (it differed by 3.1e-4 in round 2 while the segment
+# path's boundary sums used atomics).  The 2-D script's run is held
+# against its 1-D control at the same bars: at its own configuration
+# (weight decay 0, init and boundaries seeded 0 and 11) the H100 read
+# 1.0e-6 and 8.4e-5.
 IST_2D_BARS = [4e-5, 1e-3]
 
 
@@ -3274,6 +3655,9 @@ def _sharded_graph_ranks(torch, rank, world):
     del x, w, y, y_full, dx_full, da
     torch.cuda.empty_cache()
     out["cli"] = {m: _sharded_cli(torch, m) for m in SHARDED_CLI}
+    # the same GCN run again: its boundary sums (S1) and interior ones
+    # (K1) keep one order, so it must repeat bit for bit
+    out["cli_gcn_repeat"] = _sharded_cli(torch, "gcn")
     # the control of the CLI bars: a bf16 halo, a real loss of precision
     # on the wire, must read over them
     out["cli_gcn_bf16"] = _sharded_cli(torch, "gcn", BF16_HALO)
@@ -3435,12 +3819,16 @@ def _check_ist_2d_script(ranks):
     returns rank 0's 2-D losses and both runs' accuracies (evaluated on
     rank 0 and handed out), and on every rank the 1-D control's round
     losses are within ``IST_2D_BARS`` of the 2-D run's.  Each graph
-    column trains its own copy of the control on the segment path, whose
-    atomics move the last bits, so the ranks' control losses are held to
-    the bars, not to each other."""
+    column trains its own copy of the control on the segment path, which
+    sums in one order (S1), so the ranks' control losses must be equal
+    bit for bit."""
     c0 = ranks[0]["curves"]
     for r in ranks:
         c2, c1 = r["curves"]["2d"], r["curves"]["1d"]
+        if c1["loss"] != c0["1d"]["loss"]:
+            raise RuntimeError(f"2-D script: the graph columns' 1-D "
+                               f"controls differ: {c1['loss']} and "
+                               f"{c0['1d']['loss']}")
         if c2["loss"] != c0["2d"]["loss"] or any(
                 r["curves"][tag][key] != c0[tag][key]
                 for tag in ("2d", "1d") for key in ("val", "test")):
@@ -3540,6 +3928,27 @@ def _check_sharded_graph(ranks, d1_times, d1_grads, d1_cli):
             if d1_cli[m]["launches"][k] != per_epoch * SHARDED_EPOCHS:
                 raise RuntimeError(f"sharded {m} at D=1: {k} launched "
                                    f"{d1_cli[m]['launches']}")
+    repeats = [{"losses": r["cli"]["gcn"]["losses"],
+                "repeat_losses": r["cli_gcn_repeat"]["losses"],
+                "val": r["cli"]["gcn"]["val_accs"],
+                "repeat_val": r["cli_gcn_repeat"]["val_accs"],
+                "s1_launches": [r["cli"]["gcn"]["launches"]["S1"],
+                                r["cli_gcn_repeat"]["launches"]["S1"]]}
+               for r in ranks]
+    emit({"phase": "sharded_graph", "audit": "sharded_gcn_cli_repeat",
+          "ranks": repeats})
+    for rep in repeats:
+        if rep["losses"] != rep["repeat_losses"] \
+                or rep["val"] != rep["repeat_val"] \
+                or not rep["s1_launches"][0] \
+                or rep["s1_launches"][0] != rep["s1_launches"][1]:
+            raise RuntimeError(f"the D=2 sharded GCN CLI did not repeat "
+                               f"bit for bit: {rep}")
+    launches["S1"] = sum(
+        r["agg_launches"]["S1"] + r["cli_gcn_repeat"]["launches"]["S1"]
+        + r["cli_gcn_bf16"]["launches"]["S1"]
+        + sum(c["launches"]["S1"] for c in r["cli"].values())
+        for r in ranks) + sum(c["launches"]["S1"] for c in d1_cli.values())
     for r in ranks:
         got = r["cli_gcn_bf16"]
         if got["launches"]["K1"] != SHARDED_CLI["gcn"][1]["K1"] \
@@ -3733,14 +4142,20 @@ def phase_multi_rank(torch, power):
     # a round's loss is the mean over 8 Adam steps: the first is the
     # initial params' forward, the later ones carry Adam's amplification
     # of last-bit gradient differences (see SHARDED_CLI_BARS)
-    for key in (None, "repeat"):
-        got = r4[0]["losses"] if key is None else r4[0][key]["losses"]
-        if not _finite(got) or not all(
-                e <= tol for e, tol in
-                zip(_loss_rel(got, ref2[0]["losses"]), IST_2D_BARS)):
-            raise RuntimeError(f"2-D mesh losses {got} off the S=2 x G=1 "
-                               f"run's {ref2[0]['losses']} (bars "
-                               f"{IST_2D_BARS})")
+    got = r4[0]["losses"]
+    if not _finite(got) or not all(
+            e <= tol for e, tol in
+            zip(_loss_rel(got, ref2[0]["losses"]), IST_2D_BARS)):
+        raise RuntimeError(f"2-D mesh losses {got} off the S=2 x G=1 "
+                           f"run's {ref2[0]['losses']} (bars "
+                           f"{IST_2D_BARS})")
+    # the same run repeated sums in the same order everywhere (K1 inside
+    # the shards, S1 over the boundary): bit for bit
+    if r4[0]["repeat"]["losses"] != got \
+            or r4[0]["repeat"]["val_accs"] != r4[0]["val_accs"]:
+        raise RuntimeError(f"2-D mesh: the repeated run "
+                           f"{r4[0]['repeat']['losses']} is not the first "
+                           f"one {got}")
     if not _loss_rel(r4[0]["bf16"]["losses"][:1],
                      ref2[0]["losses"][:1])[0] > IST_2D_BARS[0]:
         raise RuntimeError(f"the 2-D round-1 bar does not tell a bf16 halo "
@@ -3748,8 +4163,8 @@ def phase_multi_rank(torch, power):
                            f"{ref2[0]['losses']}")
     _check_ist_2d_script([r["script"] for r in r4])
     launches["ist_sharded_2d"] = {
-        "K1": sum(r["launches"]["K1"] for r in runs_2d)
-        + sum(r["script"]["launches"]["K1"] for r in r4)}
+        k: sum(r["launches"][k] for r in runs_2d)
+        + sum(r["script"]["launches"][k] for r in r4) for k in ("K1", "S1")}
     ring = min((r["ring_rate"] for r in sg_ranks),
                key=lambda v: v["bytes_per_s"])
     return launches, r0["k1_interior"], ring
@@ -3774,11 +4189,12 @@ BENCH_SCRIPTS = (
 GAT_GRAD_TOL = 1e-4
 # the bench's SAGE train step, the first step's gradients through K1
 # against the segment path's, per leaf by norm.  The first layer's weight
-# reads 8.2e-4 on the H100, and the summation-order noise behind that
-# varies with the segment path's atomics: the bar sits an order over it.
-# K1's own error is held at 1e-5 on the same shapes without the ReLUs
-# (``k1_fwd_f256``, ``k1_transpose_f256``).
-SAGE_GRAD_TOL = 1e-2
+# reads 8.2e-4 on the H100 in every run: K1 and S1 each sum in a fixed
+# order, and the two orders put a ReLU input on the other side of 0 now
+# and then.  The bar sits ~5x over it (1e-2 before, over the atomics'
+# run-to-run spread).  K1's own error is held at 1e-5 on the same shapes
+# without the ReLUs (``k1_fwd_f256``, ``k1_transpose_f256``).
+SAGE_GRAD_TOL = 4e-3
 
 
 def _bench_entry(torch, card):
@@ -3924,8 +4340,7 @@ def _bench_checks(torch, device, graft, graft_out):
     mask = torch.from_numpy(ds.train_mask).to(device)
     cfg = entry.sage_config(ds)
     init = sage.init(torch.Generator().manual_seed(0), cfg)
-    flipped = g.replace(**{k: getattr(g, k).flip(0).contiguous() for k in (
-        "senders", "receivers", "t_senders", "t_receivers")})
+    flipped = _reversed_edges(g)
     first = {}
     for name, graph, backend in (("dedup", g, "dedup"),
                                  ("segment", g, "segment"),
@@ -4193,13 +4608,13 @@ def phase_fullscale_scripts(torch, device, ds_a, ds_big, big_graph, builds):
 # --- remaining_scripts: the projection, record_r2 and the cost models ------
 
 # Phase 32's cut of record_r2: its reddit-small full-graph SAGE fp32 run
-# at 3 of 60 epochs, and the ultra-wide point h64 K=2 at 2 epochs (one
-# round of 150 steps a subnet); each against the trainer called directly
-# with the same configuration and seeds (losses 1e-5 relative).  The
-# ultra-wide point's batches (~4,000 edges) are under TILES_MIN_EDGES,
-# whose segment path sums with atomics: on the H100 its record read
-# 8.1e-6 off the direct call's.  The phase lowers the threshold to 0 for
-# both, so K1, which sums in a fixed order, carries them.
+# at 3 of 60 epochs (K1), and the ultra-wide point h64 K=2 at 2 epochs
+# (one round of 150 steps a subnet); each against the trainer called
+# directly with the same configuration and seeds.  The full-graph run is
+# held at 1e-5 relative.  The ultra-wide point's batches (~4,000 edges)
+# are under TILES_MIN_EDGES and take the segment path, S1, which sums in
+# a fixed order: its record must equal the direct call's bit for bit
+# (with atomics it read 8.1e-6 off, and K1 was forced to carry it).
 R2_SINGLE, R2_SINGLE_EPOCHS = "reddit_full_float32", 3
 R2_UW, R2_UW_EPOCHS, R2_UW_PSIZE = "ultrawide:64,2", 2, 1500
 R2_TOL = 1e-5
@@ -4241,7 +4656,6 @@ def phase_remaining_scripts(torch, ds_a, v2_layout, ring, dev, builds):
     cost models' counts and the ultra-wide point's partitions."""
     import tempfile
 
-    from gist_tpu_torch import sampler
     from gist_tpu_torch.bench import (amazon_split_analysis,
                                       amazon_tn_analysis,
                                       scaling_projection)
@@ -4279,14 +4693,8 @@ def phase_remaining_scripts(torch, ds_a, v2_layout, ring, dev, builds):
                 ("singles", R2_SINGLE, R2_SINGLE_EPOCHS),
                 (R2_UW, "uw_h64_k2", R2_UW_EPOCHS)):
             t0 = time.time()
-            min_edges = sampler.TILES_MIN_EDGES
-            if what == R2_UW:
-                sampler.TILES_MIN_EDGES = 0
-            try:
-                rec, direct = _r2_against_direct(torch, what, name, epochs,
-                                                 out_dir, parts["cache_dir"])
-            finally:
-                sampler.TILES_MIN_EDGES = min_edges
+            rec, direct = _r2_against_direct(torch, what, name, epochs,
+                                             out_dir, parts["cache_dir"])
             add(rec["kernel_launches"])
             rel = _loss_rel(rec["losses"], direct["losses"])
             rows[name] = row = {
@@ -4296,7 +4704,9 @@ def phase_remaining_scripts(torch, ds_a, v2_layout, ring, dev, builds):
                 "direct_wall_time": direct["wall_time"],
                 "losses": rec["losses"],
                 "direct_losses": direct["losses"], "loss_rel": rel,
-                "tol": R2_TOL, "kernel_launches": rec["kernel_launches"],
+                "tol": R2_TOL if what != R2_UW else "bitwise",
+                "losses_equal": rec["losses"] == direct["losses"],
+                "kernel_launches": rec["kernel_launches"],
                 "file": os.path.basename(os.path.join(
                     out_dir, f"torch_r2_{name}.json")),
                 "written": os.path.exists(os.path.join(
@@ -4311,8 +4721,16 @@ def phase_remaining_scripts(torch, ds_a, v2_layout, ring, dev, builds):
                 and max(row["loss_rel"]) <= R2_TOL):
             raise RuntimeError(f"record_r2 {name} off the trainer called "
                                f"directly: {row}")
-    if not all(row["kernel_launches"].get("K1") for row in rows.values()):
-        raise RuntimeError("a record_r2 run did not launch K1")
+    uw = rows["uw_h64_k2"]
+    if not uw["losses_equal"]:
+        raise RuntimeError(f"record_r2's ultra-wide point is not the "
+                           f"trainer's run bit for bit: {uw}")
+    if not (rows[R2_SINGLE]["kernel_launches"].get("K1")
+            and uw["kernel_launches"].get("S1")
+            and not uw["kernel_launches"].get("K1")):
+        raise RuntimeError("record_r2: the full-graph run did not launch "
+                           "K1, or the ultra-wide point left the segment "
+                           "path")
 
     # the counts (host numpy) came from the host builds; the rates are
     # this card's, measured here, and the walls follow from both
@@ -4450,7 +4868,7 @@ def main():
     emit({"phase": "gat_main_path", "seconds": time.time() - t0})
 
     t0 = time.time()
-    phase_ist_simulation(torch)
+    sim_s1 = phase_ist_simulation(torch)
     emit({"phase": "ist_simulation", "seconds": time.time() - t0})
 
     t0 = time.time()
@@ -4506,6 +4924,10 @@ def main():
     scan_b_launches, scan_b_rows = phase_scan_batches(torch, ds, sampler)
     emit({"phase": "scan_batches", "seconds": time.time() - t0})
     del sampler
+
+    t0 = time.time()
+    s1_rows, s1_launches = phase_segment_csr(torch, device, ds, ds_r)
+    emit({"phase": "segment_csr", "seconds": time.time() - t0})
 
     t0 = time.time()
     phase_sweep(torch)
@@ -4731,6 +5153,30 @@ def main():
                 "profiler_ms", "bitwise_repeat", "gathered_tb_s")
                 if k in narrow}}
                if narrow else {})})
+    s1_main = s1_rows["batch fwd F=256 float32"]
+    s1_by_path = {**s1_launches, "ist_simulation": sim_s1,
+                  "sharded_graph": sharded_launches["S1"],
+                  "ist_sharded_2d": multi["ist_sharded_2d"]["S1"],
+                  "bench": bench_launches["S1"],
+                  "remaining_scripts": remaining_launches["S1"]}
+    kernels.append({
+        "name": "segment_csr", "route": "cuda",
+        "source": "gist_tpu_torch/csrc/segment_csr.cu",
+        "replaces": "no TPU kernel: XLA's segment_sum in "
+                    "gist_tpu/ops/spmm.py:84, gist_tpu/ops/segment.py:64, "
+                    ":86",
+        "launches": sum(s1_by_path.values()),
+        "launches_by_path": s1_by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in s1_rows.values()
+                           if r["case"].endswith("float32")),
+        "bitwise_repeat": all(r["bitwise_repeat"] for r in s1_rows.values()),
+        **{k: s1_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms",
+                                   "library_det_ms")},
+        "shapes": {case: {k: r[k] for k in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_det_ms", "max_abs_err", "rel_err",
+            "bitwise_repeat")} for case, r in s1_rows.items()}})
     emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.time() - t_all})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

@@ -43,21 +43,22 @@ def k1_bound(layout, x, n_out_rows):
 
 
 def launch_counts() -> dict:
-    """Every kernel's launch counter, by kernel: K1-K9."""
+    """Every kernel's launch counter, by kernel: K1-K9 and S1."""
     from gist_tpu_torch.ops import (dedup_spmm, gat_dedup, gat_tiled,
-                                    split_spmm, tiled_spmm)
+                                    segment_csr, split_spmm, tiled_spmm)
     return {"K1": dedup_spmm.launches, "K2": split_spmm.launches,
             "K3": tiled_spmm.launches, "K4": gat_dedup.launches_fwd,
             "K5": gat_dedup.launches_b1, "K6": gat_dedup.launches_b2,
             "K7": gat_tiled.launches_fwd, "K8": gat_tiled.launches_b1,
-            "K9": gat_tiled.launches_b2}
+            "K9": gat_tiled.launches_b2, "S1": segment_csr.launches}
 
 
 def reset_launch_counts() -> None:
     """Every kernel's launch counter to 0."""
     from gist_tpu_torch.ops import (dedup_spmm, gat_dedup, gat_tiled,
-                                    split_spmm, tiled_spmm)
+                                    segment_csr, split_spmm, tiled_spmm)
     dedup_spmm.launches = split_spmm.launches = tiled_spmm.launches = 0
+    segment_csr.launches = 0
     gat_dedup.reset_launches()
     gat_tiled.reset_launches()
 

@@ -125,7 +125,7 @@ def ring_shift_rate(sg, mesh, x_loc: torch.Tensor, iters: int = 10) -> dict:
             if cuda:
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
-            ring_halo(sg, x_loc, arrays["ring_send"], group)
+            ring_halo(sg, x_loc, arrays, group)
             if cuda:
                 torch.cuda.synchronize()
             if i:                                  # the first warms up

@@ -609,6 +609,11 @@ class Graph:
     # chunked or split layouts, for graphs too large for the flat one
     dedup_c: Optional[ChunkedDedupTiles] = None
     dedup_c_t: Optional[ChunkedDedupTiles] = None
+    # (E_pad,) int32 edge ids in sender order (stable, padding edges
+    # last): the order of t_senders, which the segment path's sender
+    # gathers sum their cotangents in (ops/segment_csr.py); None where a
+    # graph was not built by graph_from_edges (sorted on the device)
+    t_perm: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "Graph":
         return dataclasses.replace(self, **kw)
@@ -623,7 +628,7 @@ class Graph:
             n_nodes=self.n_nodes, n_edges=self.n_edges,
             tiled=self.tiled_t, tiled_t=self.tiled,
             dedup=self.dedup_t, dedup_t=self.dedup,
-            dedup_c=self.dedup_c_t, dedup_c_t=self.dedup_c)
+            dedup_c=self.dedup_c_t, dedup_c_t=self.dedup_c, t_perm=None)
 
     def to(self, device) -> "Graph":
         fields = {f.name: getattr(self, f.name)
@@ -747,6 +752,8 @@ def graph_from_edges(senders, receivers, n_nodes: int, *,
         t_indptr=conv(t_indptr, np.int32),
         n_nodes=int(n_nodes),
         n_edges=n_edges,
+        t_perm=conv(np.concatenate([t_order, np.arange(n_edges, e_pad)]),
+                    np.int32),
     )
     if tiles:
         g = g.with_tiles(tile_rows=tile_rows, mode=tile_mode)

@@ -1,13 +1,19 @@
 """Edge-space ops of the GAT attention (``gist_tpu/ops/segment.py``):
 SDDMM scores, the per-receiver softmax and the weighted neighbour sum,
-as gathers and scatters over the padded edge list.
+over the padded edge list.
 
 This is the plain GAT path: the path of graphs without a dedup layout
-(the full-graph eval) and the exact reference of K4–K6
-(``_xla_reference``, here :func:`gat_attention_segment`).  Padding
-edges (receiver ``n_nodes``) land in a sink row that is cut off, since
-``scatter_reduce``/``index_add_`` raise on that index where JAX's
-segment ops drop it.
+(every batch under ``sampler.TILES_MIN_EDGES`` edges, the full-graph
+eval) and the exact reference of K4–K6 (``_xla_reference``, here
+:func:`gat_attention_segment`).  Its sums and the backwards of its
+gathers go through :mod:`gist_tpu_torch.ops.segment_csr` (S1 on the
+card, in edge order; the plain versions on the CPU): the softmax
+denominators, the weighted sum, and the score gathers by sender and by
+receiver.  The per-receiver max takes no gradient and does not depend on
+the order, so it stays a ``scatter_reduce``.  Padding edges (receiver
+``n_nodes``) land in a sink row of the max that is cut off, since
+``scatter_reduce`` raises on that index where JAX's segment ops drop it;
+every sum leaves them out.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Optional
 import torch
 
 from gist_tpu_torch.graph import Graph
+from gist_tpu_torch.ops import segment_csr as csr
 
 
 def _clip(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -28,11 +35,8 @@ def sddmm_concat(graph: Graph, z: torch.Tensor, attn_l: torch.Tensor,
                  attn_r: torch.Tensor) -> torch.Tensor:
     """Edge scores ``(z_s . attn_l) + (z_r . attn_r)``: z (N, D) with
     attn (D,) or (D, H) -> (E,) or (E, H), before the leaky ReLU."""
-    src_score = z @ attn_l
-    dst_score = z @ attn_r
-    n = graph.n_nodes
-    return (src_score[_clip(graph.senders, n).long()]
-            + dst_score[_clip(graph.receivers, n).long()])
+    return (csr.gather_senders(graph, z @ attn_l)
+            + csr.gather_receivers(graph, z @ attn_r))
 
 
 def segment_softmax(graph: Graph, scores: torch.Tensor) -> torch.Tensor:
@@ -49,34 +53,21 @@ def segment_softmax(graph: Graph, scores: torch.Tensor) -> torch.Tensor:
                            device=scores.device)
         maxes.scatter_reduce_(0, idx, scores, reduce="amax")
         maxes = torch.where(torch.isfinite(maxes), maxes, 0.0)[:n]
-    seg_c = _clip(seg, n)
-    exp = torch.exp(scores - maxes[seg_c])
+    exp = torch.exp(scores - maxes[_clip(seg, n)])
     valid = (seg < n).view((-1,) + (1,) * (scores.dim() - 1))
     exp = torch.where(valid, exp, 0.0)
-    sums = torch.zeros(shape, dtype=exp.dtype, device=exp.device)
-    sums = sums.index_add(0, seg, exp)[:n]
-    return exp / sums[seg_c].clamp(min=1e-20)
+    sums = csr.sum_rows(exp, graph.indptr, graph.receivers)
+    return exp / csr.gather_receivers(graph, sums).clamp(min=1e-20)
 
 
 def segment_weighted_sum(graph: Graph, z: torch.Tensor, alpha: torch.Tensor,
                          edge_chunk: Optional[int] = None) -> torch.Tensor:
     """``h_r = sum_e alpha_e z_{send(e)}``: z (N, D) or (N, H, D), alpha
-    (E,) or (E, H).  Edges go in chunks of ~1 GiB of weighted messages
-    (the same sum in another order), so a full-graph eval does not
-    gather every message at once."""
-    if edge_chunk is None:
-        row_bytes = max(z[0].numel() * z.element_size(), 1)
-        edge_chunk = max(2 ** 30 // row_bytes, 65536)
-    out = torch.zeros((graph.n_nodes + 1,) + tuple(z.shape[1:]),
-                      dtype=torch.promote_types(z.dtype, alpha.dtype),
-                      device=z.device)
-    for a in range(0, graph.n_edges_padded, edge_chunk):
-        s = graph.senders[a:a + edge_chunk].long()
-        r = graph.receivers[a:a + edge_chunk].long()
-        w = alpha[a:a + edge_chunk]
-        w = w.reshape(tuple(w.shape) + (1,) * (z.dim() - w.dim()))
-        out = out.index_add(0, r, z[s] * w)
-    return out[:graph.n_nodes]
+    (E,) or (E, H).  On the CPU the edges go in chunks of ~1 GiB of
+    weighted messages (``edge_chunk`` when given), so a full-graph eval
+    does not gather every message at once; on the card S1 reads each
+    message in place."""
+    return csr.weighted_sum(graph, z, alpha, edge_chunk)
 
 
 def gat_attention_segment(graph: Graph, z: torch.Tensor,
@@ -85,9 +76,8 @@ def gat_attention_segment(graph: Graph, z: torch.Tensor,
     """The attention aggregation as the composite
     (``gist_tpu/ops/pallas_gat.py:_xla_reference``): z (N, O) with scores
     (N,), or z (N, H, O) with scores (N, H)."""
-    n = graph.n_nodes
-    scores = (src_score[_clip(graph.senders, n).long()]
-              + dst_score[_clip(graph.receivers, n).long()])
+    scores = (csr.gather_senders(graph, src_score)
+              + csr.gather_receivers(graph, dst_score))
     scores = torch.nn.functional.leaky_relu(scores, negative_slope)
     alpha = segment_softmax(graph, scores)
     return segment_weighted_sum(graph, z, alpha)

@@ -2,9 +2,13 @@
 
 Two backends, as in ``gist_tpu/ops/spmm.py``:
 
-* ``segment`` — gather source rows, ``index_add_`` over receivers;
-  differentiable through autograd.  The correctness reference, and the
-  path of graphs without a layout (the full-graph eval).
+* ``segment`` — the path of graphs without a layout (every batch under
+  ``sampler.TILES_MIN_EDGES`` edges, the full-graph trainers, the
+  full-graph eval): on the card S1, one CSR row walk over the receivers
+  that gathers the source rows inside the kernel and sums them in edge
+  order, its gradient S1 over the transpose view
+  (:mod:`gist_tpu_torch.ops.segment_csr`); on the CPU its plain version,
+  gather and ``index_add_``, which is also the correctness reference.
 * ``dedup`` — the kernel backend, whatever the layout: K1 on the flat
   dedup layout, K1 once per chunk on the chunked layout, K2 on the split
   layout, K3 on the v1 gather layout (``tiled``)
@@ -26,6 +30,7 @@ from typing import Optional
 import torch
 
 from gist_tpu_torch.graph import Graph
+from gist_tpu_torch.ops import segment_csr
 
 _BACKENDS = ("segment", "dedup", "auto")
 _DEFAULT_BACKEND = "auto"
@@ -75,28 +80,22 @@ def tiles_wanted() -> bool:
 
 
 def spmm_segment(graph: Graph, x: torch.Tensor) -> torch.Tensor:
-    """Gather + index_add aggregation over all edges at once."""
+    """The segment aggregation over all edges at once."""
     return spmm_segment_chunked(graph, x,
                                 edge_chunk=max(graph.n_edges_padded, 1))
 
 
 def spmm_segment_chunked(graph: Graph, x: torch.Tensor,
                          edge_chunk: Optional[int] = None) -> torch.Tensor:
-    """Memory-bounded aggregation: edge chunks of ~1 GiB of gathered
-    messages each, accumulated into one output.  Padding edges
-    (receiver ``n_nodes``) land in a sink row that is cut off:
-    ``index_add_`` raises on out-of-range indices where the JAX
-    package's ``segment_sum`` drops them."""
-    if edge_chunk is None:
-        f_bytes = max(int(x.shape[-1]) * x.element_size(), 1)
-        edge_chunk = max(2 ** 30 // f_bytes, 65536)
-    out = torch.zeros((graph.n_nodes + 1, x.shape[1]), dtype=x.dtype,
-                      device=x.device)
-    for a in range(0, graph.n_edges_padded, edge_chunk):
-        s = graph.senders[a:a + edge_chunk]
-        r = graph.receivers[a:a + edge_chunk]
-        out.index_add_(0, r, x.index_select(0, s))
-    return out[:graph.n_nodes]
+    """The segment aggregation, differentiable in x: on the card one S1
+    launch over the whole graph (no message buffer, so nothing to
+    bound), its gradient one over the transpose view; on the CPU the
+    plain version, edge chunks of ~1 GiB of gathered messages each
+    (``edge_chunk`` edges when given) accumulated into one output in
+    edge order.  Padding edges (receiver ``n_nodes``) lie past
+    ``indptr[-1]`` and are never read, as the JAX package's
+    ``segment_sum`` drops them."""
+    return segment_csr.aggregate(graph, x, edge_chunk)
 
 
 def aggregate(graph: Graph, x: torch.Tensor, *,

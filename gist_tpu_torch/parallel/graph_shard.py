@@ -12,9 +12,15 @@ features and every edge whose *receiver* it owns.  Aggregation:
   3. interior edges (sender and receiver on this rank) aggregate while
      the halo is in flight, through K1 (``ops/dedup_spmm.py``) on the
      rank's interior dedup layout when the graph carries one (its
-     transpose layout in the backward), else by gather and
-     ``index_add``; the boundary edges then aggregate the received
-     rows.
+     transpose layout in the backward), else through S1
+     (``ops/segment_csr.py``) over their CSR; the boundary edges then
+     aggregate the received rows through S1.
+
+Every sum of the ring aggregation runs in a fixed order: S1 walks the
+CSR offsets of each edge list, in receiver order for the forward and in
+sender order for the backward (:class:`EdgeCSR`, built once on the host
+by :func:`ring_device_arrays`), and the halo cotangents that come back
+are added into the rows that were sent by S1 over those rows' CSR.
 
 The host build (:func:`build_sharded_graph`) is the JAX package's numpy
 code, so every array equals JAX's; arrays keep their leading (D,) axis
@@ -29,12 +35,13 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gist_tpu_torch.graph import DedupTiles
+from gist_tpu_torch.ops import segment_csr as csr
 from gist_tpu_torch.parallel import comm
 
 
@@ -429,6 +436,51 @@ def _slice_tiles(t: DedupTiles, d: int, device) -> DedupTiles:
         pos=None if t.pos is None else t.pos[d].to(device))
 
 
+class EdgeCSR(NamedTuple):
+    """One rank's edge list as S1 reads it: ``indptr`` (rows + 1,) over
+    the receivers with ``senders`` in that order (the forward), and
+    ``t_indptr`` (sources + 1,) over the senders with ``t_perm`` the
+    edges in that order and ``t_receivers`` their receivers (the
+    backward).  int32, padding edges past both ends."""
+    indptr: torch.Tensor
+    senders: torch.Tensor
+    t_indptr: torch.Tensor
+    t_perm: torch.Tensor
+    t_receivers: torch.Tensor
+
+
+def _offsets(keys: np.ndarray, n: int) -> tuple:
+    """(CSR offsets (n + 1,), stable order) of ``keys`` by value; keys
+    outside [0, n) fall past the last offset."""
+    valid = (keys >= 0) & (keys < n)
+    order = np.argsort(np.where(valid, keys, n), kind="stable")
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(keys[valid], minlength=n)[:n], out=indptr[1:])
+    return indptr, order
+
+
+def edge_csr(senders, receivers, n_rows: int, n_src: int,
+             device) -> EdgeCSR:
+    """The :class:`EdgeCSR` of an edge list sorted by receiver (padding
+    receivers ``n_rows``) whose senders address ``n_src`` rows."""
+    s = np.asarray(senders, dtype=np.int64)
+    r = np.asarray(receivers, dtype=np.int64)
+    indptr, _ = _offsets(r, n_rows)
+    t_indptr, t_perm = _offsets(np.where(r < n_rows, s, n_src), n_src)
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)) \
+            .to(device)
+    return EdgeCSR(i32(indptr), i32(s), i32(t_indptr), i32(t_perm),
+                   i32(r[t_perm]))
+
+
+def halo_rows(sg: ShardedGraph) -> int:
+    """Rows of the halo stack: the kept shifts' blocks, or the 8 zero
+    rows that stand in for it without a shift."""
+    return sum(sg.ring_pads) or 8
+
+
 def ring_device_arrays(sg: ShardedGraph, rank: int, device) -> dict:
     """Rank ``rank``'s slice of what the ring aggregation reads, on
     ``device``: the rows it sends per kept shift, its interior and
@@ -437,13 +489,17 @@ def ring_device_arrays(sg: ShardedGraph, rank: int, device) -> dict:
     interior layouts were asked for but not built (a shard's build
     bailed: no interior edge, an int8 count overflow, W too large)
     raises rather than aggregate without K1; build it with
-    ``interior_tiles=False`` to take gather and ``index_add`` there."""
+    ``interior_tiles=False`` to sum through S1 there.  ``int_csr`` and
+    ``bnd_csr`` are the interior and boundary edges' :class:`EdgeCSR`
+    (the boundary's senders are halo rows); ``send_csr`` the CSR
+    offsets over the rank's rows of every row it sends (the kept shifts'
+    blocks concatenated, padding slots included) and their order."""
     if torch.device(device).type == "cuda" and sg.tiles_requested \
             and sg.int_dedup is None:
         raise RuntimeError(
             "the sharded graph was asked for its interior dedup layouts "
             "but a shard's build bailed; build it with "
-            "interior_tiles=False to aggregate by gather and index_add")
+            "interior_tiles=False to aggregate through S1")
 
     def take(a):
         return a[rank].to(device).long()
@@ -452,36 +508,49 @@ def ring_device_arrays(sg: ShardedGraph, rank: int, device) -> dict:
         "ring_send": [take(a) for a in sg.ring_send_idx],
         "int_s": take(sg.int_senders), "int_r": take(sg.int_receivers),
         "bnd_s": take(sg.ring_bnd_senders), "bnd_r": take(sg.bnd_receivers),
+        "int_csr": edge_csr(sg.int_senders[rank], sg.int_receivers[rank],
+                            sg.n_loc_pad, sg.n_loc_pad, device),
+        "bnd_csr": edge_csr(sg.ring_bnd_senders[rank],
+                            sg.bnd_receivers[rank], sg.n_loc_pad,
+                            halo_rows(sg), device),
     }
+    sent = np.concatenate([np.zeros(0, np.int64)]
+                          + [a[rank].numpy() for a in sg.ring_send_idx])
+    send_p, send_perm = _offsets(sent, sg.n_loc_pad)
+    dev["send_csr"] = tuple(
+        torch.from_numpy(a.astype(np.int32)).to(device)
+        for a in (send_p, send_perm))
     if sg.int_dedup is not None:
         dev["int_dedup"] = _slice_tiles(sg.int_dedup, rank, device)
         dev["int_dedup_t"] = _slice_tiles(sg.int_dedup_t, rank, device)
     return dev
 
 
-def _segment_sum(msgs: torch.Tensor, r: torch.Tensor, n: int):
-    """``segment_sum`` over receivers ``r``; padding receivers (== n)
-    land in a sink row that is cut off."""
-    out = msgs.new_zeros((n + 1,) + tuple(msgs.shape[1:]))
-    return out.index_add(0, r, msgs)[:n]
+def _segment_sum(msgs: torch.Tensor, r: torch.Tensor, n: int,
+                 indptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``segment_sum`` of per-edge rows over receivers ``r`` (sorted;
+    padding receivers, == n, left out) through S1 in edge order,
+    differentiable in ``msgs``; ``indptr`` is r's CSR (from
+    :class:`EdgeCSR`), found on the device when not given."""
+    if indptr is None:
+        indptr = csr.index_csr(r, n)[0]
+    return csr.sum_rows(msgs, indptr, r)
 
 
 def _interior(sg: ShardedGraph, dev: dict, x: torch.Tensor,
               transpose: bool = False) -> torch.Tensor:
     """The interior edges' sum: K1 on the rank's interior layout (the
     transpose layout for the backward) when the bundle carries it, else
-    gather and ``index_add``."""
+    S1 over their CSR (in sender order for the backward)."""
     n = sg.n_loc_pad
     if "int_dedup" in dev:
         from gist_tpu_torch.ops.dedup_spmm import run_dedup
         t = dev["int_dedup_t"] if transpose else dev["int_dedup"]
         return run_dedup(t, x.contiguous(), n)
-    s, r = (dev["int_r"], dev["int_s"]) if transpose \
-        else (dev["int_s"], dev["int_r"])
+    e = dev["int_csr"]
     if transpose:
-        # padding edges read the zero sink row of g
-        x = torch.cat([x, x.new_zeros((1, x.shape[1]))])
-    return _segment_sum(x.index_select(0, s), r, n)
+        return csr.segment_csr(e.t_indptr, x.contiguous(), e.t_receivers)
+    return csr.segment_csr(e.indptr, x.contiguous(), e.senders)
 
 
 def _send_blocks(x: torch.Tensor, ring_send, halo_dtype):
@@ -489,11 +558,16 @@ def _send_blocks(x: torch.Tensor, ring_send, halo_dtype):
             for idx in ring_send]
 
 
-def _scatter_back(dx: torch.Tensor, ring_send, received) -> torch.Tensor:
-    """Add the halo cotangents that came back into the rows sent."""
-    for idx, g in zip(ring_send, received):
-        dx.index_add_(0, idx, g.to(dx.dtype))
-    return dx
+def _scatter_back(dx: torch.Tensor, dev: dict, received) -> torch.Tensor:
+    """Add the halo cotangents that came back into the rows sent: S1
+    over the sent rows' CSR (``send_csr``), in the order the blocks were
+    sent.  A block's padding slots name row 0 and bring back exact
+    zeros."""
+    if not received:
+        return dx
+    indptr, perm = dev["send_csr"]
+    return dx + csr.segment_csr(indptr, torch.cat(received).to(dx.dtype),
+                                perm)
 
 
 def _split_halo(g_halo: torch.Tensor, pads, halo_dtype):
@@ -524,23 +598,21 @@ class _RingSumAgg(torch.autograd.Function):
         interior = _interior(sg, dev, x)
         halo = _halo_of(ring.wait(), x)
         ctx.halo_rows = halo.shape[0]
-        boundary = _segment_sum(halo.index_select(0, dev["bnd_s"]),
-                                dev["bnd_r"], sg.n_loc_pad)
+        bnd = dev["bnd_csr"]
+        boundary = csr.segment_csr(bnd.indptr, halo, bnd.senders)
         return interior + boundary
 
     @staticmethod
     def backward(ctx, g):
         sg, dev = ctx.sg, ctx.dev
         g = g.contiguous()
-        g_pad = torch.cat([g, g.new_zeros((1, g.shape[1]))])
-        g_halo = g.new_zeros((ctx.halo_rows, g.shape[1])).index_add_(
-            0, dev["bnd_s"], g_pad.index_select(0, dev["bnd_r"]))
+        bnd = dev["bnd_csr"]
+        g_halo = csr.segment_csr(bnd.t_indptr, g, bnd.t_receivers)
         ring = comm.Ring(_split_halo(g_halo[:sum(sg.ring_pads)],
                                      sg.ring_pads, ctx.halo_dtype),
                          sg.ring_shifts, ctx.group, reverse=True)
         dx = _interior(sg, dev, g, transpose=True)
-        return _scatter_back(dx, dev["ring_send"], ring.wait()), None, \
-            None, None, None
+        return _scatter_back(dx, dev, ring.wait()), None, None, None, None
 
 
 class _RingHalo(torch.autograd.Function):
@@ -548,11 +620,11 @@ class _RingHalo(torch.autograd.Function):
     cotangents sent back around the reverse ring in the backward."""
 
     @staticmethod
-    def forward(ctx, x, sg, ring_send, group, halo_dtype):
-        ctx.sg, ctx.ring_send, ctx.group, ctx.halo_dtype = sg, ring_send, \
-            group, halo_dtype
+    def forward(ctx, x, sg, dev, group, halo_dtype):
+        ctx.sg, ctx.dev, ctx.group, ctx.halo_dtype = sg, dev, group, \
+            halo_dtype
         ctx.n_rows = x.shape[0]
-        ring = comm.Ring(_send_blocks(x, ring_send, halo_dtype),
+        ring = comm.Ring(_send_blocks(x, dev["ring_send"], halo_dtype),
                          sg.ring_shifts, group)
         return _halo_of(ring.wait(), x)
 
@@ -563,17 +635,18 @@ class _RingHalo(torch.autograd.Function):
                                      ctx.halo_dtype),
                          sg.ring_shifts, ctx.group, reverse=True)
         dx = g.new_zeros((ctx.n_rows, g.shape[1]))
-        return _scatter_back(dx, ctx.ring_send, ring.wait()), None, None, \
-            None, None
+        return _scatter_back(dx, ctx.dev, ring.wait()), None, None, None, \
+            None
 
 
-def ring_halo(sg: ShardedGraph, x_loc: torch.Tensor, ring_send, group,
+def ring_halo(sg: ShardedGraph, x_loc: torch.Tensor, dev: dict, group,
               halo_dtype=None) -> torch.Tensor:
     """``_ring_halo``: one send and receive per kept shift, the received
     rows concatenated in shift order ((8, F) zeros without a shift).
-    ``halo_dtype`` (e.g. ``torch.bfloat16``) casts the rows on the wire
-    only, both ways; they are cast back before use."""
-    return _RingHalo.apply(x_loc, sg, ring_send, group, halo_dtype)
+    ``dev`` is the rank's :func:`ring_device_arrays`.  ``halo_dtype``
+    (e.g. ``torch.bfloat16``) casts the rows on the wire only, both
+    ways; they are cast back before use."""
+    return _RingHalo.apply(x_loc, sg, dev, group, halo_dtype)
 
 
 def local_agg_ring(sg: ShardedGraph, x_loc: torch.Tensor, dev: dict, group,

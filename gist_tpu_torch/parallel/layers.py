@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from gist_tpu_torch.ops import segment_csr as csr
 from gist_tpu_torch.parallel import comm
 from gist_tpu_torch.parallel.graph_shard import (ShardedGraph, _segment_sum,
                                                  local_agg_ring, ring_halo)
@@ -45,7 +46,7 @@ def sharded_mean_agg(sg: ShardedGraph, x_loc, dev, halo_dtype=None):
 def sharded_halo(sg: ShardedGraph, x_loc, dev, halo_dtype=None):
     """The boundary-row exchange alone: the halo stack in ring order
     (what ``dev["bnd_s"]`` indexes)."""
-    return ring_halo(sg, x_loc, dev["ring_send"], dev["group"], halo_dtype)
+    return ring_halo(sg, x_loc, dev, dev["group"], halo_dtype)
 
 
 def sharded_whole_tensor_layer_norm(h, row_valid, group, *,
@@ -61,10 +62,16 @@ def sharded_whole_tensor_layer_norm(h, row_valid, group, *,
     return (h - mean) * torch.rsqrt(var + eps)
 
 
-def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``jnp.take(..., mode="clip")``: padding indices read the last
-    row."""
-    return a.index_select(0, idx.clamp(max=a.shape[0] - 1))
+def _take(a: torch.Tensor, idx: torch.Tensor, csr_of=None) -> torch.Tensor:
+    """``jnp.take(..., mode="clip")``: padding indices read the last row.
+    With ``csr_of``, idx's CSR (indptr, perm) from the rank's
+    :class:`~gist_tpu_torch.parallel.graph_shard.EdgeCSR`, the backward
+    sums each row's cotangents through S1 in that order (padding indices
+    take no gradient); without it, for values that take no gradient (the
+    softmax max), a plain gather."""
+    if csr_of is None:
+        return a.index_select(0, idx.clamp(max=a.shape[0] - 1))
+    return csr.gather(a, idx, *csr_of)
 
 
 def _segment_max(e: torch.Tensor, r: torch.Tensor, n: int) -> torch.Tensor:
@@ -86,10 +93,13 @@ def gat_local_segments(aux, z_loc, src_s, dst_s, z_h, src_h, n_pad,
     gradient."""
     int_s, int_r = aux["int_s"], aux["int_r"]
     bnd_s, bnd_r = aux["bnd_s"], aux["bnd_r"]
-    e_int = _lrelu(_take(src_s, int_s) + _take(dst_s, int_r),
-                   negative_slope)
-    e_bnd = _lrelu(_take(src_h, bnd_s) + _take(dst_s, bnd_r),
-                   negative_slope)
+    ic, bc = aux["int_csr"], aux["bnd_csr"]
+    by_r = {"int": (ic.indptr, None), "bnd": (bc.indptr, None)}
+    by_s = {"int": (ic.t_indptr, ic.t_perm), "bnd": (bc.t_indptr, bc.t_perm)}
+    e_int = _lrelu(_take(src_s, int_s, by_s["int"])
+                   + _take(dst_s, int_r, by_r["int"]), negative_slope)
+    e_bnd = _lrelu(_take(src_h, bnd_s, by_s["bnd"])
+                   + _take(dst_s, bnd_r, by_r["bnd"]), negative_slope)
     with torch.no_grad():
         m = torch.maximum(_segment_max(e_int, int_r, n_pad),
                           _segment_max(e_bnd, bnd_r, n_pad))
@@ -100,15 +110,16 @@ def gat_local_segments(aux, z_loc, src_s, dst_s, z_h, src_h, n_pad,
         return torch.where(valid, torch.exp(e - _take(safe_m, r)), 0.0)
 
     x_int, x_bnd = _exp(e_int, int_r), _exp(e_bnd, bnd_r)
-    den = (_segment_sum(x_int, int_r, n_pad)
-           + _segment_sum(x_bnd, bnd_r, n_pad)).clamp(min=1e-20)
+    den = (_segment_sum(x_int, int_r, n_pad, ic.indptr)
+           + _segment_sum(x_bnd, bnd_r, n_pad, bc.indptr)).clamp(min=1e-20)
 
-    def _wsum(x_e, r, z_src, s):
-        alpha = x_e / _take(den, r)
-        return _segment_sum(_take(z_src, s) * alpha[:, :, None], r, n_pad)
+    def _wsum(x_e, r, z_src, s, part):
+        alpha = x_e / _take(den, r, by_r[part])
+        return _segment_sum(_take(z_src, s, by_s[part]) * alpha[:, :, None],
+                            r, n_pad, by_r[part][0])
 
-    return _wsum(x_int, int_r, z_loc, int_s) + _wsum(x_bnd, bnd_r, z_h,
-                                                     bnd_s)
+    return _wsum(x_int, int_r, z_loc, int_s, "int") \
+        + _wsum(x_bnd, bnd_r, z_h, bnd_s, "bnd")
 
 
 def gat_local_hybrid(aux, z_loc, src_s, dst_s, z_h, src_h, n_pad,
@@ -131,15 +142,18 @@ def gat_local_hybrid(aux, z_loc, src_s, dst_s, z_h, src_h, n_pad,
     acc_i = out_i.float() * l_i[..., None]
 
     bnd_s, bnd_r = aux["bnd_s"], aux["bnd_r"]
-    e_bnd = _lrelu(_take(src_h, bnd_s) + _take(dst_s, bnd_r),
-                   negative_slope)
+    bc = aux["bnd_csr"]
+    e_bnd = _lrelu(_take(src_h, bnd_s, (bc.t_indptr, bc.t_perm))
+                   + _take(dst_s, bnd_r, (bc.indptr, None)), negative_slope)
     m_b = _segment_max(e_bnd, bnd_r, n_pad)
     m_b = torch.where(torch.isfinite(m_b), m_b, NEG_INF)
     valid = (bnd_r < n_pad)[:, None]
     x_b = torch.where(valid, torch.exp(
         torch.clamp(e_bnd - _take(m_b, bnd_r), max=0.0)), 0.0)
-    l_b = _segment_sum(x_b, bnd_r, n_pad)
-    acc_b = _segment_sum(_take(z_h, bnd_s) * x_b[:, :, None], bnd_r, n_pad)
+    l_b = _segment_sum(x_b, bnd_r, n_pad, bc.indptr)
+    acc_b = _segment_sum(
+        _take(z_h, bnd_s, (bc.t_indptr, bc.t_perm)) * x_b[:, :, None],
+        bnd_r, n_pad, bc.indptr)
 
     m = torch.maximum(m_i, m_b)
     si = torch.exp(m_i - m)
@@ -190,7 +204,8 @@ def sharded_gat_attention(sg: ShardedGraph, z_loc, src_s, dst_s, dev,
     halo = sharded_halo(sg, payload, dev, halo_dtype)
     z_h = halo[:, :heads * d_out].reshape(-1, heads, d_out)
     src_h = halo[:, heads * d_out:]
-    aux = {k: dev[k] for k in ("int_s", "int_r", "bnd_s", "bnd_r")}
+    aux = {k: dev[k] for k in ("int_s", "int_r", "bnd_s", "bnd_r",
+                               "int_csr", "bnd_csr")}
     if "int_dedup" in dev:
         aux["int_dedup"] = dev["int_dedup"]
         return _GATHybrid.apply(z_loc, src_s, dst_s, z_h, src_h, aux, n_pad,

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
 K1 (the dedup SpMM), K2 (the split SpMM), K3 (the v1 SpMM), K4–K6 (the
-dedup GAT attention and its fused backward) and K7–K9 (the v1 GAT
-attention and its fused backward).  CUDA kernels have no CPU mode, so
+dedup GAT attention and its fused backward), K7–K9 (the v1 GAT
+attention and its fused backward) and S1 (the segment path's CSR row
+walk).  CUDA kernels have no CPU mode, so
 every test here skips without a card.  On a machine with one (and
 without JAX), run:
 
@@ -959,9 +960,9 @@ def test_ultrawide_resume_on_card(cuda, tmp_path, monkeypatch):
     """Cut after round 1 and resumed to round 3 on the card: the
     resumed call's record (the whole run's) equals the uninterrupted
     run's, dropout masks drawn on the card.
-    Every batch carries the dedup layout, so the steps run K1, which
-    sums in a fixed order (the segment path's atomics would move the
-    last bits between any two runs)."""
+    Every batch carries the dedup layout, so the steps run K1; the same
+    run on the segment path (S1) is
+    ``test_ultrawide_resume_on_card_segment_path``."""
     from gist_tpu_torch import sampler
     from gist_tpu_torch.data import load_dataset
     from gist_tpu_torch.models.sage import SAGEConfig
@@ -1294,3 +1295,197 @@ def test_default_init_is_the_same_on_card_and_cpu(cuda, monkeypatch,
             for k in lh:
                 assert lc[k].device.type == "cuda"
                 assert torch.equal(lc[k].cpu(), lh[k])
+
+
+# --- S1: the segment path's CSR row walk ----------------------------------
+
+
+def _s1_rel_bar(dtype):
+    return 1e-2 if dtype == torch.bfloat16 else 1e-5
+
+
+@pytest.mark.parametrize("case", CASES + ["hub"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("f", [1, 41, 100, 256, 602])
+def test_segment_csr_matches_plain(cuda, case, dtype, f):
+    """S1 over a graph's receivers and over its transpose view (the
+    aggregation's forward and backward) against its plain version (gather
+    and ``index_add_``): 1e-5 relative to the plain result's max in fp32
+    and fp64 (the float64 references of the training checks), 1e-2 in
+    bf16; two launches give the same bits; rows without edges are 0."""
+    from gist_tpu_torch.ops import segment_csr as S
+    rng = np.random.default_rng(f)
+    s, r, n = _edges(case, rng)
+    g = graph_from_edges(s, r, n, pad_to=len(s) + 5).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32))
+    x = x.to(dtype).to(cuda)
+    for ptr, idx, deg in ((g.indptr, g.senders, g.in_degrees),
+                          (g.t_indptr, g.t_senders, g.out_degrees)):
+        got = S.segment_csr(ptr, x, idx)
+        again = S.segment_csr(ptr, x, idx)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, again)
+        assert _rel(got, S.segment_csr_reference(ptr, x, idx)) \
+            <= _s1_rel_bar(dtype)
+        assert bool((got[deg == 0] == 0).all())
+
+
+@pytest.mark.parametrize("heads,d", [(1, 64), (2, 256), (4, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_csr_weighted_and_identity_match_plain(cuda, heads, d,
+                                                        dtype):
+    """S1 with per-edge weights over heads (the GAT weighted sum, alpha in
+    fp32) and with the identity index (per-edge rows, the softmax
+    denominators): the plain version's bars, bitwise repeats."""
+    from gist_tpu_torch.ops import segment_csr as S
+    rng = np.random.default_rng(heads * d)
+    s, r, n = _edges("hub", rng)
+    g = graph_from_edges(s, r, n).to(cuda)
+    z = torch.from_numpy(rng.standard_normal((n, heads, d)).astype(
+        np.float32)).to(dtype).to(cuda)
+    w = torch.from_numpy(rng.random((g.n_edges_padded, heads)).astype(
+        np.float32)).to(cuda)
+    m = torch.from_numpy(rng.standard_normal(
+        (g.n_edges_padded, heads)).astype(np.float32)).to(dtype).to(cuda)
+    for args in ((g.indptr, z, g.senders, w), (g.indptr, m)):
+        got = S.segment_csr(*args)
+        again = S.segment_csr(*args)
+        want = S.segment_csr_reference(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, again)
+        assert _rel(got, want) <= _s1_rel_bar(dtype)
+
+
+def test_segment_functions_backward_match_plain(cuda):
+    """The segment path's Functions on the card (S1 forward and
+    backward) against the same Functions on the CPU (the plain
+    versions), fp32: the aggregation, and the GAT composite's output and
+    the gradients of z and both scores, 1e-5; a second backward on the
+    card gives the same bits.  (A receiver's score gradient sums terms
+    that cancel; the CPU tests hold a hub's against the scale of its
+    terms.)"""
+    from gist_tpu_torch.ops import segment as SEG
+    from gist_tpu_torch.ops import segment_csr as S
+    dtype = torch.float32
+    rng = np.random.default_rng(7)
+    s, r, n = _edges("several_tiles", rng)
+    g = graph_from_edges(s, r, n, pad_to=len(s) + 11)
+    arrays = [rng.standard_normal((n, 2, 32)), rng.standard_normal((n, 2)),
+              rng.standard_normal((n, 2)), rng.standard_normal((n, 64))]
+    arrays = [torch.from_numpy(a.astype(np.float32)).to(dtype)
+              for a in arrays]
+    ct = torch.from_numpy(rng.standard_normal((n, 2, 32)).astype(
+        np.float32))
+    ct_x = torch.from_numpy(rng.standard_normal((n, 64)).astype(np.float32))
+
+    def run(graph, device):
+        leaves = [a.to(device).requires_grad_(True) for a in arrays]
+        out = SEG.gat_attention_segment(graph, *leaves[:3])
+        agg = S.aggregate(graph, leaves[3])
+        grads = torch.autograd.grad(
+            (out, agg), leaves, (ct.to(device, out.dtype),
+                                 ct_x.to(device, agg.dtype)))
+        return [t.detach().float().cpu() for t in (out, agg, *grads)]
+    S.launches = 0
+    card, again = run(g.to(cuda), cuda), run(g.to(cuda), cuda)
+    torch.cuda.synchronize()
+    assert S.launches > 0
+    host = run(g, "cpu")
+    for a, b, c in zip(card, again, host):
+        assert torch.equal(a, b)
+        assert _rel(a, c) <= _s1_rel_bar(dtype)
+
+
+def test_segment_csr_raises_instead_of_falling_back(cuda):
+    from gist_tpu_torch.ops import segment_csr as S
+    g = graph_from_edges([0, 1, 2], [1, 2, 0], 3).to(cuda)
+    x = torch.ones((3, 4), device=cuda)
+    with pytest.raises(TypeError):
+        S.segment_csr(g.indptr.long(), x, g.senders)
+    with pytest.raises(TypeError):
+        S.segment_csr(g.indptr, x.half(), g.senders)
+    with pytest.raises(ValueError):
+        S.segment_csr(g.indptr, x, g.senders.cpu())
+
+
+def test_segment_csr_replay_matches_eager(cuda):
+    """S1 captured once and replayed on new inputs copied into the
+    captured x: the replay equals an eager launch bit for bit, after the
+    output was overwritten with NaN."""
+    from gist_tpu_torch.ops import segment_csr as S
+    rng = np.random.default_rng(3)
+    s, r, n = _edges("several_tiles", rng)
+    g = graph_from_edges(s, r, n).to(cuda)
+
+    def rand():
+        return torch.from_numpy(rng.standard_normal((n, 100)).astype(
+            np.float32)).to(cuda)
+    x = rand()
+    (got,), run = _replayed(lambda: S.segment_csr(g.indptr, x, g.senders))
+    assert torch.equal(got, S.segment_csr(g.indptr, x, g.senders))
+    x.copy_(rand())
+    run.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, S.segment_csr(g.indptr, x, g.senders))
+
+
+def test_cluster_scan_on_segment_path_launches_s1(cuda):
+    """``train_cluster_gcn(scan_batches=True)`` at the default threshold:
+    the batches carry no layout, so the captured steps run S1 and no K1;
+    the replayed epochs give the loop's losses within 1e-5 relative, and
+    two runs of each give the same losses."""
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.models.sage import SAGEConfig
+    from gist_tpu_torch.ops import segment_csr as S
+    from gist_tpu_torch.train import capture
+    from gist_tpu_torch.train.cluster import train_cluster_gcn
+    from gist_tpu_torch.train.common import TrainConfig
+
+    def run(scan):
+        ds = load_dataset("synth-tiny")
+        cfg = SAGEConfig(ds.in_feats, 16, ds.n_classes, n_layers=2,
+                         dropout=0.3)
+        return train_cluster_gcn(ds, cfg, TrainConfig(n_epochs=3), psize=6,
+                                 batch_size=2, scan_batches=scan,
+                                 verbose=False, device="cuda")
+    K.launches = S.launches = 0
+    loop, loop2 = run(False), run(False)
+    assert S.launches > 0 and K.launches == 0
+    capture.reset_stats()
+    S.launches = 0
+    scan, scan2 = run(True), run(True)
+    assert capture.stats["replays"] == 6 and S.launches > 0
+    assert K.launches == 0
+    assert loop["losses"] == loop2["losses"]
+    assert scan["losses"] == scan2["losses"]
+    np.testing.assert_allclose(scan["losses"], loop["losses"], rtol=1e-5)
+
+
+def test_ultrawide_resume_on_card_segment_path(cuda, tmp_path):
+    """``test_ultrawide_resume_on_card`` at the default threshold, where
+    the batches carry no layout and every step runs the segment path
+    (S1, no K1): the resumed record equals the uninterrupted run's
+    exactly."""
+    from gist_tpu_torch.data import load_dataset
+    from gist_tpu_torch.models.sage import SAGEConfig
+    from gist_tpu_torch.ops import segment_csr as S
+    from gist_tpu_torch.train.common import TrainConfig
+    from gist_tpu_torch.train.ist_ultrawide import train_ist_ultrawide
+
+    def run(n_epochs, ck=None):
+        ds = load_dataset("synth-tiny")
+        tc = TrainConfig(lr=3e-2, weight_decay=0.0, n_epochs=n_epochs,
+                         num_subnet=2, iter_per_site=2)
+        return train_ist_ultrawide(
+            ds, SAGEConfig(ds.in_feats, 16, ds.n_classes, dropout=0.3), tc,
+            psize=4, batch_size=2, eval_on_cpu=False, checkpoint_dir=ck,
+            verbose=False, device="cuda")
+    K.launches = S.launches = 0
+    full = run(8)
+    assert S.launches > 0 and K.launches == 0
+    cut = run(4, str(tmp_path))
+    resumed = run(8, str(tmp_path))
+    assert resumed["losses"][:len(cut["losses"])] == cut["losses"]
+    assert resumed["losses"] == full["losses"]
+    assert resumed["val_accs"] == full["val_accs"]
