@@ -1,16 +1,21 @@
-"""Time the port's v1 kernels (K3, K7, K8, K9) of two checkouts on one
-card, in turns.
+"""Time the port's v1 kernels (K3, K7, K8, K9) and S1 of two checkouts
+on one card, in turns.
 
-    python3 chip_ab.py OTHER
+    python3 chip_ab.py OTHER [KERNEL ...]
 
 OTHER is the root of another checkout (or a directory holding its
-``gist_tpu_torch`` package).  The script runs one worker process per
-checkout in the order OTHER, THIS, THIS, OTHER, twice over, so that
-drift of the card's clocks falls on both alike.  Each worker builds its
-checkout's kernels, makes the same seeded inputs on the full
-synth-reddit-small v1 graph (the v1 main path's shapes: K3 at F=256 and
-41 forward and transpose, K7-K9 at D=512 and 41 fp32), times each kernel
-through its checkout's public wrapper with the port's timer
+``gist_tpu_torch`` package); KERNEL names limit the run to those kernels
+(``K3``, ``K7``, ``K8``, ``K9``, ``S1``; all by default).  The script
+runs one worker process per checkout in the order OTHER, THIS, THIS,
+OTHER, twice over, so that drift of the card's clocks falls on both
+alike.  Each worker builds its checkout's kernels, makes the same seeded
+inputs (the v1 main path's shapes on the full synth-reddit-small v1
+graph: K3 at F=256 and 41 forward and transpose, K7-K9 at D=512 and 41
+fp32; S1 at the segment path's shapes, ``chip_smoke.py:_s1_shapes``: a
+flagship-shaped batch at F=256 and 100, forward and transpose, fp32 and
+bf16, the GAT weighted sum and softmax denominators on it, and
+synth-reddit-small at F=602 and 256 forward and transpose), times each
+kernel through its checkout's public wrapper with the port's timer
 (device time per call over back-to-back calls) and prints the SHA-1 of
 each output; the first worker of each checkout also saves its outputs
 to a temporary directory.  K8 and K9 take seeded stand-ins for m, l and
@@ -34,46 +39,58 @@ import tempfile
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def _timer():
-    """The port's kernel timer (``gist_tpu_torch/bench/timing.py``) from
-    this script's checkout, whichever checkout is being timed."""
+KERNELS = ("K3", "K7", "K8", "K9", "S1")
+
+
+def _here(name, path):
+    """The module at ``path`` of this script's checkout, whichever
+    checkout is being timed."""
     spec = importlib.util.spec_from_file_location(
-        "bench_timing",
-        os.path.join(HERE, "gist_tpu_torch", "bench", "timing.py"))
+        name, os.path.join(HERE, *path))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.kernel_ms
+    return mod
+
+
+def _timer():
+    """The port's kernel timer (``gist_tpu_torch/bench/timing.py``)."""
+    return _here("bench_timing",
+                 ("gist_tpu_torch", "bench", "timing.py")).kernel_ms
 
 
 def _sha1(tensors):
-    return [hashlib.sha1(t.detach().contiguous().cpu().numpy().tobytes())
-            .hexdigest()[:16] for t in tensors]
+    """The SHA-1 of each tensor's bytes (any dtype, bf16 included)."""
+    import torch
+    return [hashlib.sha1(t.detach().contiguous().cpu().view(torch.uint8)
+                         .numpy().tobytes()).hexdigest()[:16]
+            for t in tensors]
 
 
-def worker(root, save=None):
-    """Time this root's kernels; one JSON line per case on stdout, and
-    each case's outputs saved under the directory ``save`` if given."""
+def worker(root, kernels, save=None):
+    """Time this root's ``kernels`` (comma-separated); one JSON line per
+    case on stdout, and each case's outputs saved under the directory
+    ``save`` if given."""
     sys.path.insert(0, root)
     import torch
 
     from gist_tpu_torch.data import load_dataset
     from gist_tpu_torch.graph import graph_from_edges
     from gist_tpu_torch.ops import gat_tiled as GT
+    from gist_tpu_torch.ops import segment_csr as S1
     from gist_tpu_torch.ops import tiled_spmm as K3
 
     kernel_ms = _timer()
+    kernels = kernels.split(",")
     dev = torch.device("cuda")
     ds = load_dataset("synth-reddit-small")
-    g = graph_from_edges(ds.senders, ds.receivers, ds.n_nodes, tiles=True,
-                         tile_mode="gather").to(dev)
-    tf, tt = g.tiled, g.tiled_t
-    n = g.n_nodes
     gen = torch.Generator().manual_seed(0)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen).to(dev)
 
     def case(kernel, name, fn):
+        if kernel not in kernels:
+            return
         out = fn()
         out = out if isinstance(out, tuple) else (out,)
         torch.cuda.synchronize()
@@ -84,6 +101,20 @@ def worker(root, save=None):
                           "ms": kernel_ms(fn),
                           "sha1": _sha1(out)}), flush=True)
 
+    if "S1" in kernels:
+        # the segment path's shapes, made by this script's chip_smoke.py
+        # from the timed checkout's graph and sampler code
+        shapes = _here("chip_smoke_here", ("chip_smoke.py",))._s1_shapes(
+            torch, dev, load_dataset("synth-amazon2m-small"), ds)
+        for name, (ptr, x, idx, w), _ in shapes:
+            case("S1", name, lambda: S1.segment_csr(ptr, x, idx, w))
+        del shapes
+    if not set(kernels) & {"K3", "K7", "K8", "K9"}:
+        return
+    g = graph_from_edges(ds.senders, ds.receivers, ds.n_nodes, tiles=True,
+                         tile_mode="gather").to(dev)
+    tf, tt = g.tiled, g.tiled_t
+    n = g.n_nodes
     for f in (256, 41):
         x = randn(n, f)
         for direction, t in (("fwd", tf), ("bwd", tt)):
@@ -103,14 +134,14 @@ def worker(root, save=None):
             tt, ds_, gg, src, dst, m, l, 0.01))
 
 
-def _run_workers(roots, tmp):
+def _run_workers(roots, kernels, tmp):
     """The workers in the order other, this, this, other, twice over;
     the first of each label saves its outputs under ``tmp/<label>``.
     Returns each label's runs, each a dict (kernel, case) -> row."""
     runs = {"other": [], "this": []}
     for label in ["other", "this", "this", "other"] * 2:
         cmd = [sys.executable, os.path.abspath(__file__), "--worker",
-               roots[label]]
+               roots[label], ",".join(kernels)]
         if not runs[label]:
             os.makedirs(os.path.join(tmp, label))
             cmd.append(os.path.join(tmp, label))
@@ -140,15 +171,16 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_ab: no CUDA device available")
     args = sys.argv[1:]
-    if len(args) >= 2 and args[0] == "--worker":
+    if len(args) >= 3 and args[0] == "--worker":
         return worker(*args[1:])
-    if len(args) != 1 or not os.path.isdir(
-            os.path.join(args[0], "gist_tpu_torch")):
-        sys.exit("usage: python3 chip_ab.py OTHER; OTHER holds "
-                 "gist_tpu_torch/")
+    kernels = args[1:] or list(KERNELS)
+    if (not args or not os.path.isdir(os.path.join(args[0], "gist_tpu_torch"))
+            or not set(kernels) <= set(KERNELS)):
+        sys.exit(f"usage: python3 chip_ab.py OTHER [KERNEL ...]; OTHER "
+                 f"holds gist_tpu_torch/, KERNEL one of {KERNELS}")
     roots = {"other": os.path.abspath(args[0]), "this": HERE}
     with tempfile.TemporaryDirectory() as tmp:
-        runs = _run_workers(roots, tmp)
+        runs = _run_workers(roots, kernels, tmp)
         summary = {}
         for key in runs["this"][0]:
             rows = {label: [run[key] for run in runs[label]]

@@ -214,19 +214,30 @@ raising on failure:
 33. segment_csr (run after phase 23): S1, the segment path's CSR row
     walk, against its plain version (gather and ``index_add_``: fp32
     1e-5, bf16 1e-2) and bitwise over two launches, with times beside its
-    bound and two PyTorch yardsticks (``torch.segment_reduce`` over the
-    gathered messages, ``index_add_`` under
-    ``use_deterministic_algorithms(True)``), on a flagship-shaped batch
-    (synth-amazon2m-small, psize 750, batch 10: F=256 forward and
-    transpose, fp32 and bf16, F=100, the GAT weighted sum and softmax
-    denominators) and on synth-reddit-small (F=602; F=256 forward and
-    transpose); the audit's repeats, each run twice from one seed and
+    bound and three PyTorch yardsticks (``torch.sparse.mm`` over the CSR
+    tensor, ``torch.segment_reduce`` over the gathered messages,
+    ``index_add_`` under ``use_deterministic_algorithms(True)``), on a
+    flagship-shaped batch (synth-amazon2m-small, psize 750, batch 10:
+    F=256 and F=100 forward and transpose, fp32 and bf16, the GAT
+    weighted sum at D=256 and 41 and the softmax denominators) and on
+    synth-reddit-small (F=602 and F=256 forward and transpose); the
+    audit's repeats, each run twice from one seed and
     held bit for bit in losses, accuracies and parameters: one round of
     the flagship-shaped path (SAGE h2048, 4 hidden layers, K=8, at the
     default threshold, so S1) and one GAT-GIST round (h512, 2 heads,
     K=2, synth-reddit-small psize 40, batch 4); the D=2 sharded GCN
     CLI's repeat is phase 27's; then a segment-path SAGE step captured
-    and replayed (``scan_batches``), S1 in every replay's trace.
+    and replayed (``scan_batches``), S1 in every replay's trace.  Its
+    rows give each shape's plan, the rows' gather rate and, for the
+    unweighted sums, ``torch.sparse.mm`` over the CSR tensor
+    (``library_csr_ms``).
+34. s1_plans (run just before phase 33, on its shapes, which add the
+    flagship batch at F=100 bf16, every transpose, and the GAT weighted
+    sum at D=41): every plan of S1's plan space held bit for bit against
+    the chosen plan's output and timed, every plan once a round over
+    three rounds (median), with the chosen and the fastest plan; then
+    S1 at the flagship batch with every index set to row 0 and with no
+    edges, beside its own time (where a batch's time goes).
 
 The layouts of phases 10, 12 and 31, and phase 32's cost-model counts
 and partitions, are built on the host by one child process started
@@ -342,9 +353,10 @@ def _ptxas_entries(report):
             for size in range(len("_kernel"), end if end > 7 else 0):
                 if mangled[:end - size].endswith(str(size)):
                     args = re.match(r"I(\w*?)EE?v", mangled[end:]).group(1)
+                    dtype = ("bf16" if "bfloat16" in args else
+                             {"f": "f32", "d": "f64"}.get(args[:1]))
                     name = "{}<{}>".format(mangled[end - size:end], ",".join(
-                        ["bf16" if "bfloat16" in args else "f32"]
-                        * (args[:1] in "f1")
+                        [dtype] * (dtype is not None)
                         + re.findall(r"L[ib](\d+)E", args)))
                     break
             continue
@@ -2703,9 +2715,13 @@ def _s1_row(torch, phase, case, indptr, x, idx=None, w=None,
     """S1 against its plain version (gather and ``index_add_``: fp32
     1e-5, bf16 1e-2 relative to the plain result's max) and against
     itself (two launches bitwise equal), with its times beside its bound
-    and, where ``library``, two PyTorch calls of the same sum timed as
-    yardsticks: ``torch.segment_reduce`` over the gathered messages (the
-    gather not timed) and ``index_add_`` under
+    and the rate of the rows it gathers (one ``f``-wide row a real edge
+    and head) and, where ``library`` (the unweighted sums), PyTorch calls
+    of the same sum timed as yardsticks: ``torch.sparse.mm`` over
+    ``torch.sparse_csr_tensor(indptr, idx, ones)`` (``library_csr_ms``,
+    the one call that computes S1's function; null where PyTorch has no
+    kernel for the dtype), ``torch.segment_reduce`` over the gathered
+    messages (the gather not timed) and ``index_add_`` under
     ``torch.use_deterministic_algorithms(True)``."""
     from gist_tpu_torch.ops import segment_csr as S
 
@@ -2722,16 +2738,33 @@ def _s1_row(torch, phase, case, indptr, x, idx=None, w=None,
     rel_err = abs_err / max(float(want.float().abs().max()), 1e-30)
     tol = 1e-5 if x.dtype == torch.float32 else 1e-2
     bound_ms, bound_by, nbytes, flops = _s1_bound(indptr, x, idx, w, got)
+    e = int(indptr[-1]) - int(indptr[0])
+    gathered = e * got[0].numel() * got.element_size()
     row = {"phase": phase, "case": case, "rows": got.shape[0],
            "edges": int(indptr[-1]), "max_abs_err": abs_err,
            "rel_err": rel_err, "tol": tol,
            "bitwise_repeat": bool(torch.equal(got, again)),
+           "plan": S.launch_plan(*_s1_key(indptr, x, w))._asdict(),
            "ms": kernel_ms(kernel), "call_ms": call_ms(kernel, reps=20),
            "plain_ms": call_ms(plain, reps=3), "bound_ms": bound_ms,
            "bound_by": bound_by, "bound_bytes": nbytes, "useful_flops": flops,
+           "gathered_bytes": gathered, "library_csr_ms": None,
            "library_ms": None, "library_det_ms": None}
+    row["gathered_tb_s"] = gathered / row["ms"] / 1e9
     if library:
         e = int(indptr[-1])
+        cols = idx[:e] if idx is not None else torch.arange(
+            e, dtype=torch.int32, device=x.device)
+        adj = torch.sparse_csr_tensor(
+            indptr, cols, torch.ones(e, dtype=x.dtype, device=x.device),
+            size=(got.shape[0], x.shape[0]))
+        x2 = x.reshape(x.shape[0], -1)
+        try:
+            torch.sparse.mm(adj, x2)
+            row["library_csr_ms"] = kernel_ms(lambda: torch.sparse.mm(adj,
+                                                                      x2))
+        except RuntimeError as err:   # no sparse kernel for the dtype
+            row["library_csr_error"] = str(err).splitlines()[0][:200]
         msgs = x[:e] if idx is None else x.index_select(0, idx[:e].long())
         offsets = indptr.long()
         row["library_ms"] = kernel_ms(lambda: torch.segment_reduce(
@@ -2749,10 +2782,11 @@ def _s1_row(torch, phase, case, indptr, x, idx=None, w=None,
             row["library_det_ms"] = kernel_ms(det)
         finally:
             torch.use_deterministic_algorithms(False)
-        row["library"] = ("torch.segment_reduce(sum) over the gathered "
+        row["library"] = ("torch.sparse.mm over the CSR tensor (ones); "
+                          "torch.segment_reduce(sum) over the gathered "
                           "messages; gather and index_add_ under "
                           "use_deterministic_algorithms(True)")
-        del msgs, rows
+        del msgs, rows, adj
     emit(row)
     if not (rel_err <= tol and row["bitwise_repeat"]):
         raise RuntimeError(f"S1 disagrees with its plain version or with "
@@ -2760,12 +2794,23 @@ def _s1_row(torch, phase, case, indptr, x, idx=None, w=None,
     return row
 
 
-def _s1_kernel_rows(torch, device, ds, ds_r):
-    """S1's rows at the phase's three shapes: a flagship-shaped batch at
-    sub-width 256 (forward and transpose, fp32 and bf16) and at F=100,
-    with the GAT weighted sum and the softmax denominators on it; the
-    headline synth-reddit-small graph at F=602; the same graph forward
-    and transpose at F=256."""
+def _s1_key(indptr, x, w):
+    """(f, item, row alignment, segments) of an S1 call: ``launch_plan``'s
+    key."""
+    from gist_tpu_torch.ops import segment_csr as S
+    heads = 1 if w is None or w.dim() == 1 else w.shape[1]
+    f, item = x[0].numel() // heads, x.element_size()
+    return (f, item, S.row_align(f, item, x.data_ptr()),
+            (indptr.shape[0] - 1) * heads)
+
+
+def _s1_shapes(torch, device, ds, ds_r):
+    """S1's cases at the path's shapes, as (case, (indptr, v, idx, w),
+    unweighted): a flagship-shaped batch at sub-width 256 and at F=100,
+    forward and transpose, fp32 and bf16, with the GAT weighted sum (H=2,
+    D=256, and D=41 as the output layer's classes) and the softmax
+    denominators (F = heads = 2) on it; the headline synth-reddit-small
+    graph at F=602 and F=256, forward and transpose."""
     import numpy as np
 
     from gist_tpu_torch.graph import graph_from_edges
@@ -2782,34 +2827,95 @@ def _s1_kernel_rows(torch, device, ds, ds_r):
     def rand(*shape, dtype=torch.float32):
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dtype).to(device)
-    rows = {}
-
-    def add(key, *args, **kw):
-        rows[key] = _s1_row(torch, "segment_csr", key, *args, **kw)
+    shapes = []
     for f, dtype in ((256, torch.float32), (100, torch.float32),
-                     (256, torch.bfloat16)):
+                     (256, torch.bfloat16), (100, torch.bfloat16)):
         x = rand(g.n_nodes, f, dtype=dtype)
         tag = str(dtype).split(".")[-1]
-        add(f"batch fwd F={f} {tag}", g.indptr, x, g.senders)
-        if f == 256:
-            add(f"batch bwd F={f} {tag}", g.t_indptr, x, g.t_senders)
+        shapes.append((f"batch fwd F={f} {tag}", (g.indptr, x, g.senders,
+                                                  None), True))
+        shapes.append((f"batch bwd F={f} {tag}", (g.t_indptr, x,
+                                                  g.t_senders, None), True))
     e = g.n_edges_padded
     alpha = torch.from_numpy(rng.random((e, 2)).astype(np.float32)).to(
         device)
-    add("batch weighted H=2 D=256 float32", g.indptr,
-        rand(g.n_nodes, 2, 256), g.senders, alpha, library=False)
-    add("batch denominators H=2 float32", g.indptr, rand(e, 2))
-    del sampler, batch, g
+    for d in (256, 41):
+        shapes.append((f"batch weighted H=2 D={d} float32",
+                       (g.indptr, rand(g.n_nodes, 2, d), g.senders, alpha),
+                       False))
+    shapes.append(("batch denominators H=2 float32",
+                   (g.indptr, rand(e, 2), None, None), True))
     gr = graph_from_edges(ds_r.senders, ds_r.receivers,
                           ds_r.n_nodes).to(device)
-    add("reddit fwd F=602 float32", gr.indptr,
-        torch.from_numpy(ds_r.features).to(device), gr.senders)
-    x = rand(gr.n_nodes, 256)
-    add("reddit fwd F=256 float32", gr.indptr, x, gr.senders)
-    add("reddit bwd F=256 float32", gr.t_indptr, x, gr.t_senders)
-    del gr, x
-    torch.cuda.empty_cache()
-    return rows
+    for f, x in ((602, torch.from_numpy(ds_r.features).to(device)),
+                 (256, rand(gr.n_nodes, 256))):
+        shapes.append((f"reddit fwd F={f} float32",
+                       (gr.indptr, x, gr.senders, None), True))
+        shapes.append((f"reddit bwd F={f} float32",
+                       (gr.t_indptr, x, gr.t_senders, None), True))
+    return shapes
+
+
+def _s1_kernel_rows(torch, shapes):
+    """S1's rows at the phase's shapes (``_s1_shapes``)."""
+    return {case: _s1_row(torch, "segment_csr", case, *args,
+                          library=unweighted)
+            for case, args, unweighted in shapes}
+
+
+def phase_s1_plans(torch, shapes):
+    """S1's launch plans side by side at the segment path's shapes
+    (``_s1_shapes``): every plan of ``plan_space`` at each, held bit for
+    bit against the chosen plan's output (every plan sums each row in
+    edge order, so all give the same bits), and timed like the kernels,
+    every plan once a round over three rounds (``ms``: the median).
+    Then, at the first shape (the flagship batch, F=256), S1 again with
+    every index set to row 0 and with no edges.  Returns (one row a
+    shape: the chosen plan, the fastest, their times; the probe)."""
+    from gist_tpu_torch.ops import segment_csr as S
+
+    out = []
+    for case, (indptr, x, idx, w), _ in shapes:
+        key = _s1_key(indptr, x, w)
+        chosen = S.launch_plan(*key)
+        plans = S.plan_space(*key[:3])
+        if chosen not in plans:
+            raise RuntimeError(f"S1's plan {chosen} for {case} is not in "
+                               f"its plan space")
+        want = S.run_plan(indptr, x, idx, w, chosen)
+        for plan in plans:
+            got = S.run_plan(indptr, x, idx, w, plan)
+            if not torch.equal(got, want):
+                raise RuntimeError(f"S1 plan {plan} differs from the chosen "
+                                   f"{chosen} at {case}")
+        del want, got
+        fns = [lambda p=plan: S.run_plan(indptr, x, idx, w, p)
+               for plan in plans]
+        # every plan once a round, in turns, so drift falls on all alike
+        times = [[kernel_ms(fn, windows=3, window_ms=2.0) for fn in fns]
+                 for _ in range(3)]
+        ms = [statistics.median(t[i] for t in times)
+              for i in range(len(plans))]
+        best = min(range(len(plans)), key=ms.__getitem__)
+        row = {"phase": "s1_plans", "case": case, "key": list(key),
+               "chosen": chosen._asdict(), "chosen_ms": ms[
+                   plans.index(chosen)],
+               "best": plans[best]._asdict(), "best_ms": ms[best],
+               "plans": [[*p, m] for p, m in zip(plans, ms)]}
+        emit(row)
+        out.append(row)
+    # where the flagship batch's time goes: the same launch with every
+    # gather of row 0 (an L1 hit after the first) and with no edges at
+    # all (the launch, the indptr loads and the stores)
+    case, (indptr, x, idx, w), _ = shapes[0]
+    row0, empty = torch.zeros_like(idx), torch.zeros_like(indptr)
+    probe = {"phase": "s1_plans", "probe": case,
+             "ms": kernel_ms(lambda: S.segment_csr(indptr, x, idx, w)),
+             "row0_ms": kernel_ms(lambda: S.segment_csr(indptr, x, row0, w)),
+             "no_edges_ms": kernel_ms(lambda: S.segment_csr(empty, x, idx,
+                                                            w))}
+    emit(probe)
+    return out, probe
 
 
 def _params_differ(torch, a, b):
@@ -2976,12 +3082,13 @@ def _segment_replay(torch, ds_r):
     return loop_launches["S1"] + sum(per_replay)
 
 
-def phase_segment_csr(torch, device, ds, ds_r):
-    """S1 at the three shapes, the audit's repeats (the flagship-shaped
-    round and the GAT-GIST round, each run twice from one seed, bit for
-    bit; the sharded GCN CLI's repeat is in phase 27) and a captured
-    segment-path step.  Returns (S1's rows, its launches by path)."""
-    rows = _s1_kernel_rows(torch, device, ds, ds_r)
+def phase_segment_csr(torch, shapes, ds, ds_r):
+    """S1 at the path's shapes (``_s1_shapes``), the audit's repeats (the
+    flagship-shaped round and the GAT-GIST round, each run twice from one
+    seed, bit for bit; the sharded GCN CLI's repeat is in phase 27) and a
+    captured segment-path step.  Returns (S1's rows, its launches by
+    path)."""
+    rows = _s1_kernel_rows(torch, shapes)
     sage_row = _audit_sage_round(torch, ds)
     gat_row = _audit_gat_step(torch, ds_r)
     replay_launches = _segment_replay(torch, ds_r)
@@ -4926,7 +5033,14 @@ def main():
     del sampler
 
     t0 = time.time()
-    s1_rows, s1_launches = phase_segment_csr(torch, device, ds, ds_r)
+    s1_shapes = _s1_shapes(torch, device, ds, ds_r)
+    s1_plans, s1_probe = phase_s1_plans(torch, s1_shapes)
+    emit({"phase": "s1_plans", "seconds": time.time() - t0})
+
+    t0 = time.time()
+    s1_rows, s1_launches = phase_segment_csr(torch, s1_shapes, ds, ds_r)
+    del s1_shapes
+    torch.cuda.empty_cache()
     emit({"phase": "segment_csr", "seconds": time.time() - t0})
 
     t0 = time.time()
@@ -5170,13 +5284,19 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in s1_rows.values()
                            if r["case"].endswith("float32")),
         "bitwise_repeat": all(r["bitwise_repeat"] for r in s1_rows.values()),
+        "state": "redesigned for the H100: 16- or 8-byte vectors by row "
+                 "alignment, gathers in flight, column bands past a wave",
         **{k: s1_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms",
-                                   "library_det_ms")},
+                                   "bound_by", "library_ms", "library_csr_ms",
+                                   "library_det_ms", "gathered_tb_s")},
         "shapes": {case: {k: r[k] for k in (
-            "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_det_ms", "max_abs_err", "rel_err",
-            "bitwise_repeat")} for case, r in s1_rows.items()}})
+            "plan", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_csr_ms", "library_ms", "library_det_ms",
+            "gathered_bytes", "gathered_tb_s", "max_abs_err", "rel_err",
+            "bitwise_repeat")} for case, r in s1_rows.items()},
+        "plans": {r["case"]: {k: r[k] for k in (
+            "chosen", "chosen_ms", "best", "best_ms")} for r in s1_plans},
+        "latency_probe": s1_probe})
     emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.time() - t_all})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

@@ -8,11 +8,11 @@ import shutil
 
 import pytest
 
-from gist_tpu_torch.ops import (dedup_spmm, gat_dedup, gat_tiled, split_spmm,
-                                tiled_spmm)
+from gist_tpu_torch.ops import (dedup_spmm, gat_dedup, gat_tiled, segment_csr,
+                                split_spmm, tiled_spmm)
 
 MODULES = {"K1": dedup_spmm, "K2": split_spmm, "K3": tiled_spmm,
-           "K4-K6": gat_dedup, "K7-K9": gat_tiled}
+           "K4-K6": gat_dedup, "K7-K9": gat_tiled, "S1": segment_csr}
 # the kernels compiled with the count-block walk (K1, K2) or its list
 # step (K4, K5 and K6)
 COUNT_BLOCK = {"K1", "K2", "K4-K6"}
@@ -232,3 +232,25 @@ def test_k1_instances_match_tile_sizes():
                             for cu in dedup_spmm.CUS)
     assert launch.index("return (int)cudaErrorInvalidValue;") > \
         launch.rindex("K1_SHAPE(")
+
+
+def test_s1_instances_match_plan_space():
+    """S1's source has one instance per plan the wrapper can launch
+    (``segment_csr.PLANS``), each with 16-byte vectors on aligned rows,
+    16-byte vectors on rows it realigns (not for fp64, whose rows always
+    allow 8-byte vectors), and 8-byte vectors, and refuses any other
+    plan."""
+    text = _read(segment_csr.SOURCE)
+    run = _body(text, "run")
+    plans = sorted(tuple(map(int, p)) for p in re.findall(
+        r"S1_PLAN\((\d+), (\d+), (\d+)\)", run))
+    assert plans == sorted(segment_csr.PLANS)
+    assert "launch_vec<T, G, C, D>(a, vec_bytes, realign)" in run
+    vec = _body(text, "launch_vec")
+    for args in ("8, false", "WORD, true", "WORD, false"):
+        assert f"launch<T, G, C, D, {args}>(a)" in vec, args
+    assert vec.index("if constexpr (sizeof(T) < 8)") < \
+        vec.index("launch<T, G, C, D, WORD, true>")
+    for body in (run, vec):
+        assert body.rindex("return (int)cudaErrorInvalidValue;") > \
+            body.rindex("launch")

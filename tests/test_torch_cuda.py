@@ -1357,6 +1357,71 @@ def test_segment_csr_weighted_and_identity_match_plain(cuda, heads, d,
         assert _rel(got, want) <= _s1_rel_bar(dtype)
 
 
+S1_DTYPES = [torch.float32, torch.bfloat16, torch.float64]
+S1_WIDTHS = [1, 2, 3, 41, 100, 255, 256, 257, 301, 602, 1024]
+
+
+@pytest.mark.parametrize("dtype", S1_DTYPES)
+@pytest.mark.parametrize("f", S1_WIDTHS)
+def test_segment_csr_plans_match_plain(cuda, dtype, f):
+    """Every plan of S1's plan space (16-byte vectors, realigned where
+    the rows are not on 16-byte boundaries, and 8-byte ones where they
+    are on 8-byte boundaries), over a graph's receivers and over its
+    transpose view, against the plain version (1e-5 relative to its max
+    in fp32 and fp64, 1e-2 in bf16) and bit for bit against the chosen
+    plan's output and a second launch: every plan sums each row in edge
+    order."""
+    from gist_tpu_torch.ops import segment_csr as S
+    rng = np.random.default_rng(f)
+    s, r, n = _edges("hub", rng)
+    g = graph_from_edges(s, r, n, pad_to=len(s) + 5).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32))
+    x = x.to(dtype).to(cuda)
+    for ptr, idx in ((g.indptr, g.senders), (g.t_indptr, g.t_senders)):
+        want = S.segment_csr(ptr, x, idx)
+        torch.cuda.synchronize()
+        assert _rel(want, S.segment_csr_reference(ptr, x, idx)) \
+            <= _s1_rel_bar(dtype)
+        item = x.element_size()
+        for plan in S.plan_space(f, item, S.row_align(f, item,
+                                                      x.data_ptr())):
+            got = S.run_plan(ptr, x, idx, None, plan)
+            again = S.run_plan(ptr, x, idx, None, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want) and torch.equal(again, want), plan
+
+
+@pytest.mark.parametrize("dtype", S1_DTYPES)
+@pytest.mark.parametrize("f", [3, 41, 100, 256, 602])
+@pytest.mark.parametrize("view", ["row", "element"])
+def test_segment_csr_misaligned_views_match_contiguous(cuda, dtype, f,
+                                                      view):
+    """S1 on a view whose rows start off 16-byte boundaries (``x[1:]`` of
+    a larger tensor, or one element into its storage: its 16-byte words
+    realigned across lanes) gives the bits of the same values in a fresh
+    tensor, forward, transpose and weighted over two heads, its output
+    written into memory filled with NaN; and the plain version's bars."""
+    from gist_tpu_torch.ops import segment_csr as S
+    rng = np.random.default_rng(f + len(view))
+    s, r, n = _edges("hub", rng)
+    g = graph_from_edges(s, r, n, pad_to=len(s) + 5).to(cuda)
+    flat = torch.from_numpy(rng.standard_normal((n + 1) * 2 * f).astype(
+        np.float32)).to(dtype).to(cuda)
+    start = 2 * f if view == "row" else 1
+    x = flat[start:start + n * 2 * f].view(n, 2, f)
+    wdt = torch.float64 if dtype == torch.float64 else torch.float32
+    w = torch.from_numpy(rng.random((g.n_edges_padded, 2))).to(wdt).to(cuda)
+    for args in ((g.indptr, x, g.senders), (g.t_indptr, x, g.t_senders),
+                 (g.indptr, x, g.senders, w)):
+        want = S.segment_csr(args[0], x.clone(), *args[2:])
+        _nan_blocks(cuda, (tuple(want.shape), want.dtype))
+        got = S.segment_csr(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert _rel(got, S.segment_csr_reference(*args)) \
+            <= _s1_rel_bar(dtype)
+
+
 def test_segment_functions_backward_match_plain(cuda):
     """The segment path's Functions on the card (S1 forward and
     backward) against the same Functions on the CPU (the plain

@@ -107,17 +107,37 @@ def test_source_has_no_atomics_or_zero_fill(name):
         assert name not in fh.read()
 
 
-@pytest.mark.parametrize("f,vec,group,grid", [
-    (1, 1, 4, (2, 1)), (2, 2, 4, (2, 1)), (41, 1, 8, (4, 1)),
-    (100, 4, 16, (8, 1)), (256, 4, 32, (16, 1)), (602, 2, 32, (16, 3)),
-    (2048, 4, 32, (16, 8))])
-def test_launch_plan(f, vec, group, grid):
-    """The smallest group that covers the row at 8 accumulators a lane,
-    32 lanes and several block columns past 256 columns."""
-    plan = S.launch_plan(f, vec)
-    assert plan == S.Plan(group, vec)
-    assert plan.grid(128, 1, f) == grid
-    assert plan.grid(128, 2, f)[0] == 2 * grid[0]
+# the segment path's shapes (f, item, row alignment, segments): the
+# flagship-shaped batch (1,321 padded rows) at F=256 and 100 in fp32 and
+# bf16, the GAT weighted sum (H=2, D=256 and 41) and the softmax
+# denominators (F = heads = 2) on it, synth-reddit-small (23,000 rows)
+# at F=602 and 256
+PATH_SHAPES = [(256, 4, 16, 1321), (100, 4, 16, 1321), (256, 2, 16, 1321),
+               (100, 2, 8, 1321), (256, 4, 16, 2642), (41, 4, 4, 2642),
+               (2, 4, 8, 1321), (602, 4, 8, 23000), (256, 4, 16, 23000)]
+
+
+@pytest.mark.parametrize("f,item,align,segs,plan,grid", [
+    (*PATH_SHAPES[0], (8, 1, 8, 16), 331),
+    (*PATH_SHAPES[1], (8, 1, 8, 16), 166),
+    (*PATH_SHAPES[2], (8, 1, 8, 16), 166),
+    (*PATH_SHAPES[3], (8, 1, 8, 8), 166),
+    (*PATH_SHAPES[4], (8, 1, 8, 16), 661),
+    (*PATH_SHAPES[5], (16, 1, 4, 16), 166),
+    (*PATH_SHAPES[6], (1, 1, 8, 8), 6),
+    (*PATH_SHAPES[7], (32, 2, 4, 8, True), 14375),
+    (*PATH_SHAPES[8], (8, 1, 8, 16, True), 5750)])
+def test_launch_plan(f, item, align, segs, plan, grid):
+    """The plans pinned at the segment path's shapes (``PATH_SHAPES``),
+    each in the plan space, and its grid: block columns of near-equal
+    width, 256 lanes a block; 8-byte vectors on rows aligned to 8 bytes
+    only, 16-byte ones (realigned) on rows aligned to less; the units
+    of a launch of more than a wave of the card (synth-reddit-small)
+    block column by block column."""
+    got = S.launch_plan(f, item, align, segs)
+    assert got == S.Plan(*plan)
+    assert got in S.plan_space(f, item, align)
+    assert got.grid(segs, f, item) == grid
 
 
 @pytest.mark.parametrize("f,item,ptrs,want", [
@@ -125,6 +145,110 @@ def test_launch_plan(f, vec, group, grid):
     (41, 4, (0, 256), 1), (256, 4, (0, 8), 2), (100, 2, (0, 64), 4)])
 def test_vec_width(f, item, ptrs, want):
     assert S.vec_width(f, item, *ptrs) == want
+
+
+MAP_WIDTHS = (1, 2, 3, 41, 100, 255, 256, 257, 301, 602, 1024)
+ITEMS = {"float32": 4, "bfloat16": 2, "float64": 8}
+
+
+def _maps(f, item):
+    """``column_map`` of every plan of the plan space at every row-start
+    offset an element of ``item`` bytes can have in a 16-byte word (the
+    8-byte plans at the offsets on 8-byte boundaries)."""
+    for off in range(0, S.WORD, item):
+        align = (off | S.WORD) & -(off | S.WORD)
+        for plan in S.plan_space(f, item, align):
+            # a row's start: any element of its 16-byte word, after a few
+            # whole words (the word index must not matter)
+            yield plan, off + 3 * S.WORD, S.column_map(plan, f, item,
+                                                       off + 3 * S.WORD)
+
+
+@pytest.mark.parametrize("dtype", sorted(ITEMS))
+@pytest.mark.parametrize("f", MAP_WIDTHS)
+def test_column_map_covers_each_column_once(f, dtype):
+    """Every plan's lanes hold every column of the row exactly once
+    (the stores write each once), whatever the row's start, and every
+    load is of a whole aligned word of the plan's width (16 bytes
+    wherever the row is not on an 8-byte boundary) that holds a byte of
+    the row."""
+    item = ITEMS[dtype]
+    for plan, off, m in _maps(f, item):
+        vb = plan.vec_bytes
+        assert vb == S.WORD or off % vb == 0
+        cols = m["cols"][m["cols"] >= 0]
+        assert torch.equal(cols.sort().values, torch.arange(f)), (plan, off)
+        loads = m["load"][m["load"] >= 0]
+        assert bool((loads % vb == 0).all()), (plan, off)
+        assert bool(((loads < off + f * item)
+                     & (loads + vb > off)).all()), (plan, off)
+        # the block columns are of near-equal width
+        per_y = (m["cols"][..., 0] >= 0).flatten(1).sum(1)
+        assert int(per_y.max() - per_y.min()) <= 1, (plan, off)
+
+
+@pytest.mark.parametrize("dtype", sorted(ITEMS))
+@pytest.mark.parametrize("f", MAP_WIDTHS)
+def test_column_map_words_hold_each_lanes_columns(f, dtype):
+    """A lane's columns are the bytes at ``shift`` .. of its own word
+    followed by the word its neighbour loaded (the shuffle), so the byte
+    shift puts each column in place: each column's bytes lie where the
+    map says, in a word that was loaded."""
+    item = ITEMS[dtype]
+    for plan, off, m in _maps(f, item):
+        vb = plan.vec_bytes
+        pos = m["shift"] + torch.arange(max(vb // item, 1)) * item
+        own = m["load"][..., :plan.per_lane].unsqueeze(-1)
+        nxt = m["next"].unsqueeze(-1)
+        first = pos < vb
+        src = torch.where(first, own, nxt)
+        at = torch.where(first, own + pos, nxt + pos - vb)
+        live = m["cols"] >= 0
+        assert bool((src[live] >= 0).all()), (plan, off)
+        assert torch.equal(at[live], off + m["cols"][live] * item), \
+            (plan, off)
+
+
+@pytest.mark.parametrize("f,item,align", sorted({s[:3] for s in
+                                                 PATH_SHAPES}))
+def test_plan_space_fills_half_a_block_column(f, item, align):
+    """Every plan of the space has an instance and uses at least half
+    of its block column's lanes on the path's widths; 8-byte plans only
+    on rows aligned to 8 bytes."""
+    space = S.plan_space(f, item, align)
+    assert {p.vec_bytes for p in space} == ({16, 8} if align == 8
+                                           else {16})
+    for plan in space:
+        nv = S.n_vectors(f, item, plan.vec_bytes)
+        assert tuple(plan[:3]) in S.PLANS
+        assert 2 * nv >= plan.group * plan.per_lane
+        assert nv <= plan.block_cols(f, item) * plan.group * plan.per_lane
+
+
+@pytest.mark.parametrize("dtype", sorted(ITEMS))
+@pytest.mark.parametrize("segs", [1, 1321, 23000])
+def test_launch_plan_has_an_instance(dtype, segs):
+    """At every width up to 1,100 and every row alignment the dtype
+    allows, the launched plan is one the kernel has an instance for and
+    one of the plan space that ``s1_plans`` times."""
+    item = ITEMS[dtype]
+    for f in range(1, 1101):
+        for off in range(0, S.WORD, item):
+            align = S.row_align(f, item, off)
+            plan = S.launch_plan(f, item, align, segs)
+            assert tuple(plan[:3]) in S.PLANS, (f, off, plan)
+            assert plan in S.plan_space(f, item, align), (f, off, plan)
+            assert plan.vec_bytes == S.WORD or align % plan.vec_bytes == 0
+
+
+@pytest.mark.parametrize("f,item,ptr,want", [
+    (602, 4, 0, 8), (256, 4, 0, 16), (100, 2, 0, 8), (2, 4, 0, 8),
+    (41, 4, 0, 4), (256, 4, 4, 4), (256, 2, 8, 8), (3, 2, 0, 2),
+    (100, 8, 8, 8)])
+def test_row_align(f, item, ptr, want):
+    """The alignment every row start shares: of the base address and of
+    the row's bytes, at most 16."""
+    assert S.row_align(f, item, ptr) == want
 
 
 # --- the plain version ---------------------------------------------------
